@@ -4,7 +4,7 @@ embedding the tracer without a camera or film (docs/API.md "Ray queries").
 For every point of a ground-plane grid: one closest-hit query up to find
 the receiver surface, then a cosine-hemisphere batch of occlusion probes
 per receiver. All queries run as flat SoA batches under one jit each —
-the TPU-shaped way to bake: no per-texel loop, the whole light-map is one
+the array way to bake: no per-texel loop, the whole light-map is one
 ray batch.
 
     python examples/bake_ao.py [--res 128] [--rays 64] [--out /tmp/ao.png]

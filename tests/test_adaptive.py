@@ -115,77 +115,6 @@ class TestBudgetRenderer:
         assert float(st.rays) == 0.0
 
 
-class TestBudgetFused:
-    def test_uniform_budget_bit_identical_to_uniform_fused(self):
-        """A uniform budget map through the fused budget kernel must equal
-        the fused uniform kernel to the bit (same per-lane loop, the only
-        change is the per-lane bound)."""
-        from tpurt.kernels.wavefront_pallas import (
-            wavefront_render_budget_fused, wavefront_render_fused)
-        cfg, scene, cam = _setup(backend="wavefront_fused",
-                                 pallas_lanes=512)
-        st0 = init_state(cfg)
-        st_b = wavefront_render_budget_fused(
-            scene, cfg, cam, st0, 42, _pad_budgets(cfg, 2), 2)
-        st_u = wavefront_render_fused(scene, cfg, cam, st0, 42, 2)
-        assert (np.asarray(st_b.rgb_sum) == np.asarray(st_u.rgb_sum)).all()
-        assert float(st_b.rays) == float(st_u.rays) != 0.0
-
-    def test_nonuniform_matches_xla_budget(self):
-        """Fused budget kernel == XLA budget pool: exact ray-count and
-        per-pixel sample-count parity; radiance up to the usual rare
-        reassociation branch flips (<2% of pixels)."""
-        from tpurt.kernels.wavefront_pallas import (
-            wavefront_render_budget_fused)
-        cfg, scene, cam = _setup(backend="wavefront_fused",
-                                 pallas_lanes=512, wf_pool=1024)
-        rng = np.random.default_rng(8)
-        vals = rng.integers(0, 5, cfg.n_pixels)
-        budgets = _pad_budgets(cfg, vals)
-        st0 = init_state(cfg)
-        st_f = wavefront_render_budget_fused(scene, cfg, cam, st0, 42,
-                                             budgets, 4)
-        st_x = wavefront_render_budget(scene, cfg, cam, st0, 42,
-                                       budgets, max_budget=4)
-        assert float(st_f.rays) == float(st_x.rays) != 0.0
-        assert (np.asarray(st_f.n_samples)
-                == np.asarray(st_x.n_samples)).all()
-        n = cfg.n_pixels
-        a = np.asarray(st_f.rgb_sum)[:n]
-        b = np.asarray(st_x.rgb_sum)[:n]
-        assert (np.abs(a - b).max(axis=-1) > 1e-2).mean() < 0.02
-
-    def test_fused_continuation_bit_identical(self):
-        """Two fused budget calls == one combined call bit-for-bit: each
-        lane's samples run in increasing order in both schedules."""
-        from tpurt.kernels.wavefront_pallas import (
-            wavefront_render_budget_fused)
-        cfg, scene, cam = _setup(backend="wavefront_fused",
-                                 pallas_lanes=512)
-        rng = np.random.default_rng(9)
-        b1 = rng.integers(0, 3, cfg.n_pixels)
-        b2 = rng.integers(0, 3, cfg.n_pixels)
-        st0 = init_state(cfg)
-        st_a = wavefront_render_budget_fused(scene, cfg, cam, st0, 3,
-                                             _pad_budgets(cfg, b1), 2)
-        st_a = wavefront_render_budget_fused(scene, cfg, cam, st_a, 3,
-                                             _pad_budgets(cfg, b2), 2)
-        st_b = wavefront_render_budget_fused(scene, cfg, cam, st0, 3,
-                                             _pad_budgets(cfg, b1 + b2), 4)
-        assert (np.asarray(st_a.rgb_sum) == np.asarray(st_b.rgb_sum)).all()
-        assert float(st_a.rays) == float(st_b.rays) != 0.0
-
-    def test_render_adaptive_dispatches_fused(self):
-        cfg, scene, cam = _setup(backend="wavefront_fused",
-                                 pallas_lanes=512)
-        st, budgets = render_adaptive(scene, cfg, cam, base_seed=5,
-                                      spp=6, pilot_spp=2)
-        n = cfg.n_pixels
-        ns = np.asarray(st.n_samples)[:n]
-        assert (ns == 2 + np.asarray(budgets)[:n]).all()
-        assert np.isfinite(np.asarray(resolve_image(cfg, st))).all()
-
-
 class TestBudgetRegen:
     """Per-lane budgets in the regenerative megakernel: adaptive sampling
     with the FULL estimator (photons + per-pixel SPPM radius schedule)."""

@@ -173,7 +173,7 @@ def test_api_md_snippets(tmp_path):
     from tpurt.parallel import sharding as sh
     for name in ("make_mesh", "init_state_sharded", "make_sharded_step",
                  "resolve_image_sharded", "init_planes_sharded",
-                 "make_pallas_sharded_step", "make_regen_sharded_step",
+                 "make_regen_sharded_step", "planes_to_state",
                  "make_wavefront_sharded_step", "make_sample_sharded_step",
                  "make_wavefront_budget_sharded_step",
                  "make_regen_budget_sharded_step", "build_regen_budget_aux",

@@ -53,7 +53,7 @@ class TestRadianceClamp:
         cfg_p, _, _ = _setup(backend="pallas", pallas_lanes=512)
         st_p = render(scene, cfg_p, cam, init_state(cfg_p), 11, 2)
 
-        cfg_w, _, _ = _setup(backend="wavefront_fused", pallas_lanes=512,
+        cfg_w, _, _ = _setup(backend="pallas", pallas_lanes=512,
                              enable_photons=False)
         st_wx = render(scene, cfg_w.with_(backend="wavefront"), cam,
                        init_state(cfg_w), 11, 2)

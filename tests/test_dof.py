@@ -155,7 +155,7 @@ class TestDofBackends:
         assert np.abs(img_d - img_p).max() > 1e-3
 
     def test_cross_backend_exact_rays_close_images(self):
-        """XLA, regen megakernel, and fused wavefront draw identical
+        """XLA, regen megakernel, and pool wavefront draw identical
         streams with aperture on: exact ray parity, images agree except
         rare reassociation branch flips."""
         cfg, scene, cam = self._setup("xla")
@@ -164,7 +164,7 @@ class TestDofBackends:
         cfg_p, _, _ = self._setup("pallas", pallas_lanes=512)
         st_p = render(scene, cfg_p, cam, init_state(cfg_p), 9, 4)
 
-        cfg_w, _, _ = self._setup("wavefront_fused", pallas_lanes=512)
+        cfg_w, _, _ = self._setup("wavefront")
         st_w = render(scene, cfg_w, cam, init_state(cfg_w), 9, 4)
 
         assert float(st_x.rays) == float(st_p.rays) != 0.0

@@ -16,10 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpurt.kernels.mega_pallas import (
-    _diffuse_scatter_c,
-    _scatter_dielectric_c,
-    _scatter_metal_c,
+from tpurt.ops.scatter_c import (
+    diffuse_scatter_c as _diffuse_scatter_c,
+    scatter_dielectric_c as _scatter_dielectric_c,
+    scatter_metal_c as _scatter_metal_c,
 )
 from tpurt.ops import soa as s
 

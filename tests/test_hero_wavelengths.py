@@ -61,8 +61,6 @@ def test_cross_backend_exact_with_collapse():
 
 
 def test_wavefront_variants_exact():
-    from tpurt.kernels.wavefront_pallas import (wavefront_render_fused,
-                                                wavefront_render_pallas)
     from tpurt.wavefront import wavefront_render
     scene = dispersive_scene()
     cfg = RenderConfig(width=W, height=H, depth=3, enable_photons=False,
@@ -70,8 +68,7 @@ def test_wavefront_variants_exact():
                        dispersion_in_camera_path=True, pallas_lanes=512,
                        backend="pallas")
     rays = []
-    for fn in (wavefront_render, wavefront_render_pallas,
-               wavefront_render_fused):
+    for fn in (wavefront_render, render):  # pool wavefront, fused kernel
         st = fn(scene, cfg, _cam("disp"), init_state(cfg), 9, 2)
         rays.append(float(st.rays))
     assert len(set(rays)) == 1 and rays[0] != 0.0

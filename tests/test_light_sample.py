@@ -158,9 +158,7 @@ def test_power_cross_backend_camera_paths(mode):
     for name, extra in (
         ("xla", dict(backend="xla")),
         ("pallas", dict(backend="pallas")),
-        ("regen", dict(backend="pallas", pallas_regen=True)),
         ("wavefront", dict(backend="wavefront")),
-        ("wavefront_fused", dict(backend="wavefront_fused")),
     ):
         cfg = RenderConfig(**kw, **extra)
         st = render(scene, cfg, cam, init_state(cfg), 55, 2)
@@ -179,7 +177,7 @@ def test_power_cross_backend_camera_paths(mode):
 @pytest.mark.slow
 def test_power_cross_backend_with_photons():
     """Power-mode NEE + the photon pass (regen restores the photon
-    stream after the camera-only NEE draws): xla / pallas / regen agree
+    stream after the camera-only NEE draws): xla / pallas agree
     on ray counts exactly."""
     scene = _many_light_scene()
     cam = _cam()
@@ -190,7 +188,6 @@ def test_power_cross_backend_with_photons():
     for name, extra in (
         ("xla", dict(backend="xla")),
         ("pallas", dict(backend="pallas")),
-        ("regen", dict(backend="pallas", pallas_regen=True)),
     ):
         cfg = RenderConfig(**kw, **extra)
         st = render(scene, cfg, cam, init_state(cfg), 99, 2)

@@ -7,8 +7,8 @@ branch (hit test, RR) and diverge entirely — the assertions are therefore on
 the ray count (must match exactly: masks are reassociation-robust in
 aggregate), the mean image, and the fraction of divergent pixels.
 
-Runs on CPU: the kernel goes through the Pallas interpreter (the render
-dispatch auto-selects interpret mode off-TPU).
+Runs on CPU: the kernel goes through the Pallas interpreter (interpret
+mode is chosen by tpurt.runtime.pallas_interpret on the CPU).
 """
 
 import numpy as np
@@ -73,12 +73,9 @@ class TestMegaPallasParity:
         scene = default_scene()  # no obj asset -> spheres only
         if scene.num_triangles > 0:
             pytest.skip("default scene picked up a mesh")
+        # fused-kernel tiles are 128 x a power of two lanes
         cfg_kw = dict(width=48, height=24, depth=5, tile_size=1152,
-                      pallas_lanes=1152 if 1152 % 128 == 0 else 1024,
-                      k_photons=2, max_photon_bounces=4)
-        if cfg_kw["pallas_lanes"] % 128 != 0:
-            cfg_kw["pallas_lanes"] = 1024
-            cfg_kw["tile_size"] = 1024
+                      pallas_lanes=1024, k_photons=2, max_photon_bounces=4)
         st_x, st_p = _run_pair(scene, cfg_kw)
         _assert_close(st_x, st_p, 48 * 24, frac_tol=0.02)
 
@@ -93,7 +90,7 @@ class TestMegaPallasParity:
         _assert_close(st_x, st_p, 32 * 16, frac_tol=0.02)
 
     def test_triangles_static_and_dynamic(self):
-        """Mesh scenes in the kernel: unrolled and SMEM-table triangle
+        """Mesh scenes in the kernel: unrolled and table triangle
         sweeps both match the XLA integrator exactly on ray counts."""
         from tpurt.scene import tri_test_scene
         scene = tri_test_scene()
@@ -185,29 +182,6 @@ class TestMetalMaterial:
 
 
 class TestRegenKernel:
-    def test_exact_parity_with_tile_sync(self):
-        """The regenerative kernel (per-lane sample state machine) is
-        result-identical to the tile-synchronized megakernel: every draw
-        position is a pure function of (pixel, sample, phase, k)."""
-        from tpurt.kernels.mega_regen import render_regen
-        scene = cornell_spheres_scene()
-        cam = make_camera((0.0, 5.0, -12.0), (0.0, 5.0, 0.0), vfov=60.0,
-                          aspect_ratio=2.0)
-        cfg = RenderConfig(width=64, height=32, depth=4, tile_size=2048,
-                           pallas_lanes=512, k_photons=2,
-                           max_photon_bounces=3, backend="pallas",
-                           pallas_regen=False)
-        st_m = render(scene, cfg, cam, init_state(cfg), 1234, 2)
-        st_r = render_regen(scene, cfg, cam, init_state(cfg), 1234, 2)
-        assert float(st_m.rays) == float(st_r.rays) != 0.0
-        a = np.asarray(st_m.rgb_sum)
-        b = np.asarray(st_r.rgb_sum)
-        assert np.abs(a - b).max() < 1e-3
-        np.testing.assert_allclose(float(st_m.photon_radius),
-                                   float(st_r.photon_radius), rtol=1e-6)
-        dv = np.abs(np.asarray(st_m.vis_pos) - np.asarray(st_r.vis_pos))
-        assert dv.max() < 1e-4
-
     def test_default_dispatch_uses_regen(self):
         """backend='pallas' + pallas_regen (default) renders correctly
         through render()."""
@@ -293,57 +267,6 @@ class TestClusteredSweep:
         got = list(tree.always) + [sp for lf in leaves for sp in lf.prims]
         assert sorted(id(sp) for sp in got) == \
             sorted(id(sp) for sp in fs.spheres)
-
-    def test_ordered_walk_bit_identical(self):
-        """pallas_cluster_ordered drives the SAME baked leaf sweeps from
-        the near-to-far stack walk — visit order changes, per-sphere math
-        and winner selection do not, so results stay bit-identical."""
-        from tpurt.scene import instanced_scene
-        scene = instanced_scene(72)
-        cam = make_camera((0, 10, -14), (0, 1, 8), vfov=55.0,
-                          aspect_ratio=2.0)
-        kw = dict(width=64, height=32, depth=3, backend="pallas",
-                  pallas_lanes=512, pallas_static_unroll=128,
-                  pallas_cluster_size=16, k_photons=1,
-                  max_photon_bounces=2)
-        cfg_o = RenderConfig(pallas_cluster_ordered=True, **kw)
-        cfg_d = RenderConfig(**kw)
-        st_o = render(scene, cfg_o, cam, init_state(cfg_o), 99, 2)
-        st_d = render(scene, cfg_d, cam, init_state(cfg_d), 99, 2)
-        assert float(st_o.rays) == float(st_d.rays) != 0.0
-        np.testing.assert_array_equal(np.asarray(st_o.rgb_sum),
-                                      np.asarray(st_d.rgb_sum))
-
-    def test_ordered_node_table_topology(self):
-        """The packed node table mirrors the cull tree: every leaf ordinal
-        appears once, boxes match, and inner links are in-range."""
-        from tpurt.kernels.mega_pallas import (_cull_tree_node_table,
-                                               _sphere_cull_tree,
-                                               freeze_scene)
-        from tpurt.scene import instanced_scene
-        fs = freeze_scene(instanced_scene(72))
-        tree = _sphere_cull_tree(fs.spheres, 16)
-        packed, leaves = _cull_tree_node_table(tree)
-        flat = packed.reshape(-1, 16)
-        n_leaves = 0
-        seen = set()
-        stack = [0]
-        while stack:
-            i = stack.pop()
-            assert i not in seen
-            seen.add(i)
-            rec = flat[i]
-            left, right, first, count = (int(rec[6]), int(rec[7]),
-                                         int(rec[8]), int(rec[9]))
-            if count > 0:
-                assert 0 <= first < len(leaves)
-                n_leaves += 1
-            else:
-                stack += [left, right]
-        assert n_leaves == len(leaves)
-        assert sum(len(p) for p in leaves) + len(tree.always) \
-            == len(fs.spheres)
-
 
 class TestClusteredTriangles:
     """Cull-tree triangle sweep must agree with the flat unroll (exact ray

@@ -80,7 +80,7 @@ class TestMotionBlur:
         cfg_p = cfg.with_(backend="pallas", pallas_lanes=512)
         st_p = render(scene, cfg_p, mcam, init_state(cfg_p), 7, 4)
 
-        cfg_w = cfg.with_(backend="wavefront_fused", pallas_lanes=512)
+        cfg_w = cfg.with_(backend="wavefront")
         st_w = render(scene, cfg_w, mcam, init_state(cfg_w), 7, 4)
 
         assert float(st_x.rays) == float(st_p.rays) != 0.0

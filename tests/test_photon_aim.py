@@ -128,11 +128,7 @@ def test_aim_validation():
         with pytest.raises(ValueError, match="photon_aim"):
             render(scene, cfg, _cam(), init_state(cfg), 1, 1)
     cfg = RenderConfig(width=W, height=H, photon_aim=0.5,
-                       backend="wavefront_fused", wf_pool=1024)
-    with pytest.raises(NotImplementedError, match="photon_aim"):
-        render(scene, cfg, _cam(), init_state(cfg), 1, 1)
-    cfg = RenderConfig(width=W, height=H, photon_aim=0.5, backend="pallas",
-                       pallas_regen=False, tile_size=512, pallas_lanes=512)
+                       backend="wavefront", wf_pool=1024)
     with pytest.raises(NotImplementedError, match="photon_aim"):
         render(scene, cfg, _cam(), init_state(cfg), 1, 1)
 
@@ -163,7 +159,7 @@ def test_cross_backend_exact_rays():
     results = {}
     for name, extra in (
         ("xla", dict(backend="xla")),
-        ("regen", dict(backend="pallas", pallas_regen=True)),
+        ("regen", dict(backend="pallas")),
     ):
         cfg = RenderConfig(**kw, **extra)
         st = render(scene, cfg, cam, init_state(cfg), 99, 2)

@@ -86,7 +86,7 @@ def test_unbiased_vs_reference_rr():
 
 @pytest.mark.slow
 def test_cross_backend_exact_rays():
-    """scale consumes no extra draws, so the xla / tile-sync / regen
+    """scale consumes no extra draws, so the xla / regen
     ray counters stay EXACTLY equal with the flag on, and images agree
     up to reassociation branch flips."""
     scene = _photon_scene()
@@ -98,7 +98,6 @@ def test_cross_backend_exact_rays():
     for name, extra in (
         ("xla", dict(backend="xla")),
         ("pallas", dict(backend="pallas")),
-        ("regen", dict(backend="pallas", pallas_regen=True)),
     ):
         cfg = RenderConfig(**kw, **extra)
         st = render(scene, cfg, cam, init_state(cfg), 99, 2)

@@ -208,9 +208,7 @@ class TestQmcBackends:
         st_x = render(scene, cfg, cam, init_state(cfg), 9, 4)
 
         sts = []
-        for backend, extra in (("pallas", {}),
-                               ("pallas", {"pallas_regen": False}),
-                               ("wavefront_fused", {})):
+        for backend, extra in (("pallas", {}),):
             cfg_b, _, _ = _setup(backend=backend, pallas_lanes=512,
                                  **kw, **extra)
             sts.append(render(scene, cfg_b, cam, init_state(cfg_b), 9, 4))

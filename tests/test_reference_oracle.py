@@ -236,61 +236,3 @@ def test_camera_path_dispersion_quirk_pinned():
         "must change ONLY paths that refract through glass (same-seed "
         "coupling; photon/shadow Cauchy is identical in both renders)")
 
-
-def test_chunked_walk_scene_matches_reference():
-    """VERDICT r4 item 8: the 7th oracle scene, routed END-TO-END through
-    the CHUNKED triangle walk (cfg.pallas_bvh_chunk; interpret mode on
-    CPU) — mega_regen + closest_tri_bvh_chunked/tri_shadow_bvh_chunked
-    against the reference-faithful scalar oracle.  The chunked machinery
-    is pinned bit-exact to the single-table walk and to XLA by the
-    exactness suites (test_bvh_pallas); this closes the loop the same way
-    the sharding tests do: the full ESTIMATOR through the chunk DMA path
-    against the independent scalar transcription.
-
-    Scene: a 72-triangle tessellated wall (6x6 quad grid) lit by a point
-    light over the ground sphere — NEE shadow rays and the photon walk
-    both cross multiple chunks (chunk 16, threshold 32 -> ~5 chunks)."""
-    from tpurt.scene import MeshData
-
-    materials = [
-        Material.diffuse((0.8, 0.8, 0.8)),
-        Material.diffuse((0.3, 0.6, 0.85)),
-    ]
-    mesh = MeshData(material_id=1)
-    # 7x7 vertex grid -> 6x6 quads -> 72 triangles, gently curved in z so
-    # chunk boxes separate spatially
-    n = 7
-    vs, fs = [], []
-    for j in range(n):
-        for i in range(n):
-            x = -1.8 + 3.6 * i / (n - 1)
-            y = 0.0 + 2.6 * j / (n - 1)
-            z = 2.0 + 0.5 * np.sin(2.2 * i / (n - 1)) * np.cos(
-                1.7 * j / (n - 1))
-            vs.append((x, y, z))
-    for j in range(n - 1):
-        for i in range(n - 1):
-            a, b = j * n + i, j * n + i + 1
-            c, d = (j + 1) * n + i + 1, (j + 1) * n + i
-            fs.append((a, b, c))
-            fs.append((a, c, d))
-    mesh.add_triangles(np.asarray(vs, np.float32),
-                       np.asarray(fs, np.int32))
-    spheres = [Sphere(0, 1000.0, (0.0, -1000.0, 0.0))]
-    lights = [Light.point((0.0, 4.0, -3.0), (1.0, 1.0, 0.9), 30.0, 5500.0)]
-    scene = build_scene(materials, spheres, [mesh], lights)
-    cam = make_camera((0.0, 1.5, -5.0), (0.0, 1.0, 0.0), vfov=70.0,
-                      aspect_ratio=16 / 9)
-
-    cfg_kw = dict(backend="pallas", pallas_lanes=256,
-                  pallas_static_unroll=8, pallas_bvh=True,
-                  pallas_bvh_leaf=8, pallas_bvh_chunk=16,
-                  pallas_bvh_chunk_threshold=32)
-    from tpurt.kernels.mega_pallas import _use_tri_chunked, freeze_scene
-    cfg_probe = RenderConfig(width=16, height=9, **cfg_kw)
-    assert _use_tri_chunked(freeze_scene(scene), cfg_probe), \
-        "scene must exercise the chunked walk"
-
-    omean, _, timg = _compare(scene, cam, 16, 9, 5, 120, base_seed=777,
-                              **cfg_kw)
-    assert omean.mean() > 0.03

@@ -95,17 +95,6 @@ class TestWavefrontBackendDispatch:
                                       np.asarray(st_w.rgb_sum))
         assert float(st_d.rays) == float(st_w.rays) != 0.0
 
-    def test_backend_wavefront_fused_bit_identical(self):
-        from tpurt.kernels.wavefront_pallas import wavefront_render_fused
-        cfg, scene, cam = _setup(backend="wavefront_fused",
-                                 pallas_lanes=512)
-        st_d = render(scene, cfg, cam, init_state(cfg), 42, 2)
-        st_f = wavefront_render_fused(scene, cfg, cam, init_state(cfg),
-                                      42, 2)
-        np.testing.assert_array_equal(np.asarray(st_d.rgb_sum),
-                                      np.asarray(st_f.rgb_sum))
-        assert float(st_d.rays) == float(st_f.rays) != 0.0
-
     def test_render_step_dispatches(self):
         cfg, scene, cam = _setup(wf_pool=1024, backend="wavefront")
         from tpurt.render import render_step
@@ -115,29 +104,14 @@ class TestWavefrontBackendDispatch:
 
 
 class TestWavefrontPallas:
-    def test_pool_sweep_matches_xla(self):
-        """Pool-based Pallas sweep == XLA wavefront (same streams)."""
-        from tpurt.kernels.wavefront_pallas import wavefront_render_pallas
-        cfg, scene, cam = _setup(wf_pool=1024, pallas_lanes=512)
-        st_x = wavefront_render(scene, cfg, cam, init_state(cfg), 42, 2)
-        st_p = wavefront_render_pallas(scene, cfg, cam, init_state(cfg), 42, 2)
-        assert float(st_x.rays) == float(st_p.rays) != 0.0
-        n = cfg.n_pixels
-        a = np.asarray(st_x.rgb_sum)[:n]
-        b = np.asarray(st_p.rgb_sum)[:n]
-        # rare near-threshold branch flips under reassociation: bound the
-        # fraction of diverged pixels, not every element
-        # dispersive branch flips (reassociation) diverge whole pixels;
-        # 2% tolerance like the other dielectric-scene parity tests
-        assert (np.abs(a - b).max(axis=-1) > 1e-2).mean() < 0.02
-        assert abs(a.mean() - b.mean()) < 5e-3 * max(abs(a.mean()), 1e-3)
-
     def test_fused_matches_xla(self):
-        """Fused (in-kernel per-lane regeneration) == XLA wavefront."""
-        from tpurt.kernels.wavefront_pallas import wavefront_render_fused
+        """The regenerative megakernel with the photon pass off draws the
+        same camera-path + NEE streams as the XLA pool wavefront."""
+        from tpurt.render import render
         cfg, scene, cam = _setup(backend="pallas", pallas_lanes=512)
+        assert not cfg.enable_photons
         st_x = wavefront_render(scene, cfg, cam, init_state(cfg), 42, 3)
-        st_f = wavefront_render_fused(scene, cfg, cam, init_state(cfg), 42, 3)
+        st_f = render(scene, cfg, cam, init_state(cfg), 42, 3)
         assert float(st_x.rays) == float(st_f.rays) != 0.0
         n = cfg.n_pixels
         ns = np.asarray(st_f.n_samples)[:n]
@@ -332,41 +306,3 @@ class TestWavefrontDispatchContracts:
         with pytest.raises(ValueError, match="camera_strata_bounce"):
             render(scene, cfg, cam, init_state(cfg), 42, 1)
 
-
-def test_chunk_sort_same_rays_and_image():
-    """cfg.wf_chunk_sort (round 5): global pool reordering by nearest-
-    entry chunk is pure scheduling — traced-ray counts are EXACTLY
-    unchanged and the image matches up to splat scatter-add
-    reassociation (two samples of one pixel terminating in the same
-    sweep may sum in a different order)."""
-    import numpy as np
-    from tpurt import (RenderConfig, init_state, make_camera,
-                       torus_mesh_scene)
-    from tpurt.kernels.mega_pallas import (_use_tri_chunked, freeze_scene,
-                                           chunk_sort_boxes)
-    from tpurt.kernels.wavefront_pallas import wavefront_render_pallas
-
-    scene = torus_mesh_scene(16, 8)   # 256 triangles
-    kw = dict(width=64, height=32, depth=4, backend="wavefront_pallas",
-              wf_pool=1024, pallas_lanes=256, pallas_static_unroll=8,
-              pallas_bvh=True, pallas_bvh_leaf=8, pallas_bvh_chunk=16,
-              pallas_bvh_chunk_threshold=32, pallas_cluster_size=0)
-    cfg_a = RenderConfig(**kw)
-    cfg_b = RenderConfig(wf_chunk_sort=True, **kw)
-    fs = freeze_scene(scene)
-    assert _use_tri_chunked(fs, cfg_a)
-    assert chunk_sort_boxes(fs, cfg_b) is not None
-    assert chunk_sort_boxes(fs, cfg_b).shape[0] > 4   # several chunks
-
-    cam = make_camera((0, 3, -6), (0, 1.5, 0), vfov=55.0,
-                      aspect_ratio=2.0)
-    st_a = wavefront_render_pallas(scene, cfg_a, cam, init_state(cfg_a),
-                                   91, 2)
-    st_b = wavefront_render_pallas(scene, cfg_b, cam, init_state(cfg_b),
-                                   91, 2)
-    assert float(st_a.rays) == float(st_b.rays) != 0.0
-    np.testing.assert_array_equal(np.asarray(st_a.n_samples),
-                                  np.asarray(st_b.n_samples))
-    np.testing.assert_allclose(np.asarray(st_a.rgb_sum),
-                               np.asarray(st_b.rgb_sum),
-                               rtol=1e-5, atol=1e-5)

@@ -3,7 +3,7 @@
 The reference is interactive-only (ref: src/lib.rs event loop); this is the
 headless counterpart: render N frames along a camera path, each converged to
 --spp samples, writing frame_0000.png ... under --out-dir. All frames share
-one jit compile (same shapes), so a TPU renders a sequence at full kernel
+one jit compile (same shapes), so a sequence renders at full kernel
 throughput after the first frame.
 
 Camera paths:
@@ -33,9 +33,6 @@ import json
 import math
 import os
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax_compilation"))
 
 import numpy as np
 
@@ -96,8 +93,9 @@ def main():
     ap.add_argument("--width", type=int, default=1280)
     ap.add_argument("--height", type=int, default=720)
     ap.add_argument("--depth", type=int, default=30)
-    ap.add_argument("--backend", default="pallas",
-                    choices=["pallas", "xla", "wavefront"])
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "pallas", "xla", "wavefront"],
+                    help="integrator (auto: viewer.SCENE_BACKEND)")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--out-dir", required=True)
     ap.add_argument("--cpu", action="store_true")
@@ -129,6 +127,8 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from tpurt.runtime import enable_compile_cache
+    enable_compile_cache()
 
     # reuse the viewer's scene/camera bootstrap (one definition of the
     # named scenes and their default cameras)

@@ -1,6 +1,5 @@
-"""Run the full test suite and write TESTS.json — the committed run
-evidence VERDICT r3 item 4 demanded ("an unevidenced suite is half a
-suite", SURVEY.md §4).
+"""Run the full test suite and write TESTS.json — committed run evidence
+("an unevidenced suite is half a suite", SURVEY.md §4).
 
 Tiers (tests/conftest.py): the fast tier runs as one pytest process; the
 slow tier runs ONE MODULE PER PROCESS — the conftest's own guidance (a
@@ -9,12 +8,12 @@ per-module processes isolate any crash to one module's report).
 
 TESTS.json records, per module: pass/fail counts, duration, and the exit
 status; plus the fast-tier summary and the grand total. Regenerate after
-the last kernel change of a round (like BENCH/QUALITY/TPU_PARITY).
+the last kernel change (like QUALITY.json).
 
 Usage:
   python tools/run_tests.py              # fast + slow (the full suite)
   python tools/run_tests.py --fast-only  # fast tier only (quick check)
-  python tools/run_tests.py --modules test_golden test_bvh_pallas
+  python tools/run_tests.py --modules test_golden test_mega_pallas
 """
 import argparse
 import datetime

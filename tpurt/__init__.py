@@ -1,16 +1,17 @@
-"""tpurt — a TPU-native progressive spectral path tracer (JAX / Pallas).
+"""tpurt — a progressive spectral path tracer in JAX / Pallas.
 
 A ground-up rebuild of the capability surface of elieseek/wgpu-raytracer
 (Rust + WGSL, wgpu compute) as an idiomatic JAX library: pure-functional
 scene pytrees, masked lockstep integrators under jit, Pallas pixel-tile
 megakernels, and shard_map pixel-sharding for multi-chip scaling.
 
-Layer map (mirrors SURVEY.md §1, redesigned TPU-first):
+Layer map (mirrors SURVEY.md §1, redesigned for array accelerators):
   app/interaction   tpurt.viewer       (progressive loop + camera controller)
   scene (host)      tpurt.scene, tpurt.camera, tpurt.accel, tpurt.utils.obj
   pass orchestration tpurt.render      (RenderState pytree, jitted steps)
   device kernels    tpurt.integrate (XLA), tpurt.kernels.* (Pallas)
-  runtime           XLA:TPU via jax; tpurt.parallel for device meshes
+  runtime           XLA:GPU via jax (tpurt.runtime); tpurt.parallel for
+                    device meshes
 """
 
 from tpurt.camera import Camera, CameraController, make_camera, set_vfov

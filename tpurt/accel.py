@@ -6,7 +6,7 @@ most `max_prims` triangles, empty meshes produce a single zeroed node.  The
 flat node layout is {bbox_min, bbox_max, left, right, first, count}; a node
 is a leaf iff count > 0.
 
-Deviation (TPU-friendly): instead of storing a tri_indices indirection table
+Deviation: instead of storing a tri_indices indirection table
 (reference: bvh_triangle_indices), we return `order`, the permutation of
 triangles into leaf order.  The caller permutes the triangle SoA arrays once
 at build time, so device traversal reads contiguous [first, first+count)
@@ -49,10 +49,10 @@ def build_bvh(tri_min: np.ndarray, tri_max: np.ndarray, max_prims: int = 2,
     sah=True: binned surface-area-heuristic splits (native C++ when built,
     bit-identical NumPy fallback — see tests/test_native.py). Same node
     layout and leaf-order contract; only the split positions differ, so the
-    tree is a drop-in for every traversal. The cost model matches the Pallas
-    walk, where a leaf visit sweeps exactly `leaf_size` records regardless
-    of occupancy: leaf cost is ceil(n / max_prims) sweep units weighted by
-    box surface area, so the heuristic packs leaves full AND cuts overlap.
+    tree is a drop-in for every traversal. The cost model is a fixed-width
+    leaf sweep (`max_prims` records regardless of occupancy): leaf cost is
+    ceil(n / max_prims) sweep units weighted by box surface area, so the
+    heuristic packs leaves full AND cuts overlap.
     """
     max_prims = max(int(max_prims), 1)
     T = int(tri_min.shape[0])
@@ -64,11 +64,10 @@ def build_bvh(tri_min: np.ndarray, tri_max: np.ndarray, max_prims: int = 2,
         bvh = BVH(*nat) if nat is not None else _build_bvh_py(
             np.asarray(tri_min, np.float32),
             np.asarray(tri_max, np.float32), max_prims, sah=True)
-        # Lopsided SAH splits can mint many under-full leaves; the packed
-        # SMEM tables (bvh_pallas.MAX_BVH_*) are calibrated for the median
-        # build's < 2*ceil(T/K) nodes. Hold SAH trees to that SAME envelope
-        # so a near-cap scene cannot compile-fail only on real TPU; past it,
-        # take the guaranteed-balanced median tree instead.
+        # Lopsided SAH splits can mint many under-full leaves. Hold SAH
+        # trees to the median build's < 2*ceil(T/K) node envelope (callers
+        # size node tables by it); past it, take the guaranteed-balanced
+        # median tree instead.
         if bvh.bbox_min.shape[0] <= 2 * max(1, -(-T // max_prims)):
             return bvh
         sah = False
@@ -84,16 +83,16 @@ def build_bvh(tri_min: np.ndarray, tri_max: np.ndarray, max_prims: int = 2,
 _SAH_BINS = 16
 # Past this depth an SAH subtree switches to median splits: median halving
 # bounds the remaining depth by log2(n), keeping the deepest possible tree
-# well inside the kernels' 64-deep traversal stack (bvh_pallas.STACK_DEPTH).
+# well inside a 64-deep traversal stack.
 _SAH_DEPTH_CAP = 40
 
 
 # The "always visited" floor in the split cost, as a fraction of the ROOT
-# box area: the whole-tile Pallas walk visits a node when ANY of the tile's
-# 4096 rays votes for it, so for incoherent tiles a leaf costs one full
-# sweep almost regardless of its box area. The floor steers the heuristic
-# toward FEWER (fuller) leaves when area differences are small, matching
-# the tile-union behavior; pure per-ray SAH is the alpha -> 0 limit.
+# box area: a traversal that visits a node when ANY ray of a group votes
+# for it pays one full leaf sweep almost regardless of the box area. The
+# floor steers the heuristic toward FEWER (fuller) leaves when area
+# differences are small; pure per-ray SAH is the alpha -> 0 limit. The
+# native builder (native/tpurt_native.cpp) uses the same constant.
 _SAH_FLOOR = 0.25
 
 
@@ -249,151 +248,6 @@ def _build_bvh_py(tri_min: np.ndarray, tri_max: np.ndarray, max_prims: int,
         count=np.asarray(nodes_count, np.int32),
         order=np.asarray(order, np.int32),
     )
-
-
-@dataclasses.dataclass
-class WideBVH:
-    """W-ary collapse of a binary BVH (SURVEY §7 "shallow wide-branching
-    BVH … instead of binary stack traversal"): same leaves (identical
-    `first`/`count` ranges and triangle `order` permutation as the binary
-    tree), but inner nodes hold up to `width` children so the device walk
-    serializes ~log_W(T) pops instead of ~log_2(T) — the direct attack on
-    the measured scalar-issue serialization bound of the whole-tile walk
-    (docs/DESIGN.md roofline: one scalar node step + one tile-vote cond
-    per binary level while the VPU idles)."""
-    bbox_min: np.ndarray   # (B, 3) f32
-    bbox_max: np.ndarray   # (B, 3) f32
-    children: np.ndarray   # (B, width) i32, 0 = absent slot
-    first: np.ndarray      # (B,) i32
-    count: np.ndarray      # (B,) i32 — leaf iff count > 0
-    order: np.ndarray      # (T,) i32 — SAME permutation as the binary tree
-
-
-def _box_area(bmin: np.ndarray, bmax: np.ndarray) -> float:
-    d = np.maximum(np.asarray(bmax, np.float64) - bmin, 0.0)
-    return float(d[0] * d[1] + d[1] * d[2] + d[2] * d[0])
-
-
-def collapse_wide(bvh: BVH, width: int) -> WideBVH:
-    """Greedy area-first collapse: a wide node starts from a binary inner
-    node's two children and repeatedly replaces the largest-surface-area
-    inner member with ITS two children until `width` members or all
-    members are leaves.  Expanding the biggest box first maximizes the
-    overlap-pruning value of each extra child slot.  Leaves are carried
-    over verbatim, so the primitive tables built for the binary tree are
-    reused unchanged."""
-    width = int(width)
-    assert 2 <= width <= 8, "wide nodes pack at most 8 child slots"
-    bcount = np.asarray(bvh.count)
-    bleft = np.asarray(bvh.left)
-    bright = np.asarray(bvh.right)
-    bmin = np.asarray(bvh.bbox_min)
-    bmax = np.asarray(bvh.bbox_max)
-
-    nmin, nmax, nchild, nfirst, ncount = [], [], [], [], []
-
-    def alloc():
-        nmin.append(np.zeros(3, np.float32))
-        nmax.append(np.zeros(3, np.float32))
-        nchild.append([0] * width)
-        nfirst.append(0)
-        ncount.append(0)
-        return len(nmin) - 1
-
-    root = alloc()
-    # (wide_idx, binary_idx); left-to-right child allocation keeps the
-    # near-to-far default order deterministic
-    stack = [(root, 0)]
-    while stack:
-        w, b = stack.pop()
-        nmin[w] = bmin[b]
-        nmax[w] = bmax[b]
-        if bcount[b] > 0:
-            nfirst[w] = int(bvh.first[b])
-            ncount[w] = int(bcount[b])
-            continue
-        group = [int(bleft[b]), int(bright[b])]
-        while len(group) < width:
-            inner = [g for g in group if bcount[g] == 0]
-            if not inner:
-                break
-            g = max(inner, key=lambda n: _box_area(bmin[n], bmax[n]))
-            i = group.index(g)
-            # splice in place to keep spatial siblings adjacent
-            group[i:i + 1] = [int(bleft[g]), int(bright[g])]
-        kids = []
-        for g in group:
-            cw = alloc()
-            kids.append(cw)
-            stack.append((cw, g))
-        nchild[w][:len(kids)] = kids
-
-    wide = WideBVH(
-        bbox_min=np.stack(nmin).astype(np.float32),
-        bbox_max=np.stack(nmax).astype(np.float32),
-        children=np.asarray(nchild, np.int32),
-        first=np.asarray(nfirst, np.int32),
-        count=np.asarray(ncount, np.int32),
-        order=np.asarray(bvh.order, np.int32),
-    )
-    return wide
-
-
-def wide_max_stack(wide: WideBVH) -> int:
-    """Exact worst-case traversal-stack occupancy: when the walk visits a
-    node it pops 1 and pushes up to k (its child count), so the high-water
-    mark down a root-to-leaf path is 1 + sum over strict ancestors of
-    (k_anc - 1) + (k_node - 1) + 1 at the deepest push.  Computed by DFS
-    with the running sum."""
-    count = wide.count
-    children = wide.children
-    if count.shape[0] == 0:
-        return 1
-    best = 1
-    stack = [(0, 1)]  # (node, occupancy right after this node was popped+pushed-over)
-    while stack:
-        node, occ = stack.pop()
-        if count[node] > 0:
-            best = max(best, occ)
-            continue
-        kids = [int(c) for c in children[node] if c != 0]
-        best = max(best, occ + len(kids))
-        for c in kids:
-            stack.append((c, occ + len(kids) - 1))
-    return best
-
-
-def validate_wide_bvh(wide: WideBVH, bvh: BVH) -> None:
-    """Invariants of the collapse: identical leaf set (first/count pairs),
-    identical order, parent boxes contain child boxes, every node
-    reachable exactly once."""
-    if not np.array_equal(wide.order, bvh.order):
-        raise AssertionError("collapse changed the leaf-order permutation")
-    want = sorted((int(f), int(c)) for f, c in
-                  zip(bvh.first[bvh.count > 0], bvh.count[bvh.count > 0]))
-    got = sorted((int(f), int(c)) for f, c in
-                 zip(wide.first[wide.count > 0], wide.count[wide.count > 0]))
-    if want != got:
-        raise AssertionError("collapse changed the leaf set")
-    seen = np.zeros(wide.count.shape[0], bool)
-    stack = [0]
-    while stack:
-        n = stack.pop()
-        if seen[n]:
-            raise AssertionError(f"wide node {n} reachable twice")
-        seen[n] = True
-        if wide.count[n] > 0:
-            continue
-        kids = [int(c) for c in wide.children[n] if c != 0]
-        if not kids:
-            raise AssertionError(f"wide inner node {n} has no children")
-        for c in kids:
-            if (wide.bbox_min[c] < wide.bbox_min[n] - 1e-5).any() or \
-               (wide.bbox_max[c] > wide.bbox_max[n] + 1e-5).any():
-                raise AssertionError(f"wide node {n} does not contain {c}")
-            stack.append(c)
-    if not seen.all():
-        raise AssertionError("unreachable wide nodes")
 
 
 def validate_bvh(bvh: BVH, tri_min: np.ndarray, tri_max: np.ndarray, eps=1e-5) -> None:

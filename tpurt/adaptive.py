@@ -1,4 +1,4 @@
-"""Variance-adaptive sampling over the wavefront pool (TPU-native extension).
+"""Variance-adaptive sampling over the wavefront pool (extension).
 
 The reference renders a uniform sample count per pixel (its progressive loop
 adds 1 spp/frame everywhere, ref: src/mega_kernel.rs:186-198); it has no
@@ -7,8 +7,8 @@ two properties of the tpurt design:
 
   * the persistent wavefront pool consumes an *arbitrary* (pixel, sample)
     work stream at ~100% occupancy (tpurt/wavefront.py) — nonuniform
-    per-pixel budgets cost nothing extra on a TPU because the pool shape is
-    static regardless of the budget map;
+    per-pixel budgets cost nothing extra because the pool shape is static
+    regardless of the budget map;
   * pixel p's k-th sample draws from a PCG stream keyed only by (p, k)
     (render._frame_seed + rng.seed_pixels), so per-pixel estimates are
     unbiased under ANY budget map and the accumulated state stays resolvable
@@ -207,7 +207,9 @@ def variance_proxy(cfg: RenderConfig, sum_a, n_a, sum_b, n_b,
     luma = jnp.asarray(LUMA, jnp.float32)
     mean_a = sum_a / jnp.maximum(n_a, 1.0)[:, None]
     mean_b = sum_b / jnp.maximum(n_b, 1.0)[:, None]
-    d = jnp.abs((mean_a - mean_b) @ luma)
+    # HIGHEST: a float32 product must not run in TF32 on the GPU
+    d = jnp.abs(jnp.matmul(mean_a - mean_b, luma,
+                           precision=jax.lax.Precision.HIGHEST))
     n = cfg.n_pixels
     img = d[:n].reshape(cfg.height, cfg.width)
     if smooth:
@@ -264,20 +266,9 @@ def render_adaptive(scene: Scene, cfg: RenderConfig, camera: Camera,
         # full-estimator adaptivity (photons included): per-lane budgets in
         # the regenerative megakernel (kernels.mega_regen); pilots through
         # the standard render() dispatch so they match the uniform path
-        if not cfg.pallas_regen:
-            raise ValueError("adaptive sampling on backend='pallas' needs "
-                             "the regenerative kernel (pallas_regen=True)")
         from tpurt.kernels.mega_regen import (render_budget_regen,
                                               render_regen)
         uniform_fn, budget_fn = render_regen, render_budget_regen
-    elif cfg.backend == "wavefront_fused":
-        # camera-path production path: in-kernel per-lane budgets (same
-        # streams as the XLA pool — see kernels.wavefront_pallas.wavefront_
-        # render_budget_fused; pilots through the fused uniform kernel)
-        from tpurt.kernels.wavefront_pallas import (
-            wavefront_render_budget_fused, wavefront_render_fused)
-        uniform_fn, budget_fn = (wavefront_render_fused,
-                                 wavefront_render_budget_fused)
     else:
         uniform_fn, budget_fn = wavefront_render, wavefront_render_budget
 

@@ -148,7 +148,7 @@ def lens_perturb(cam: Camera, aperture: float, focus_dist: float, o, d, rng):
 def lens_perturb_c(aperture: float, focus_dist: float, rng, o0, d0,
                    cam_h, cam_v, rand_1f):
     """Component-form `lens_perturb` for the Pallas kernels: o0/d0/cam_h/
-    cam_v are 3-tuples (lane arrays / SMEM scalars). Identical draws
+    cam_v are 3-tuples (lane arrays / scalars). Identical draws
     (rand_1f twice == rand_2f) and identical math, so kernel and XLA
     backends stay stream- and value-comparable."""
     if focus_dist <= 0.0:
@@ -233,21 +233,6 @@ def lens_perturb_hv(aperture: float, focus_dist: float, h, v, o, d, rng):
     off = a * h + b * v
     finv = jnp.float32(1.0 / focus_dist)
     return o + off, d - off * finv, rng
-
-
-def lerp_components_c(camera: MotionCamera, u_t):
-    """Component-form shutter lerp for kernels whose camera arrives as a
-    pytree of (3,) arrays: returns (ll, h, v, o) as 3-tuples of lane
-    arrays at the per-lane shutter times ``u_t``."""
-    c0, c1 = camera.cam0, camera.cam1
-
-    def L(a, b):
-        return tuple(a[c] + u_t * (b[c] - a[c]) for c in range(3))
-
-    return (L(c0.lower_left, c1.lower_left),
-            L(c0.horizontal, c1.horizontal),
-            L(c0.vertical, c1.vertical),
-            L(c0.origin, c1.origin))
 
 
 def spawn_camera_rays(cfg, camera, u, v, rng):

@@ -105,13 +105,9 @@ class RenderConfig:
     #   tile-coherent; a window >= the drift re-aligns them. Unbiased
     #   (cells stay hash-uniform across epochs); convergence per sample
     #   slows as the window grows — window*K photons share each beam.
-    #   ROUND-3 GUIDANCE: on walk-based scenes prefer window=1 PAIRED
-    #   WITH pallas_regen_drift=1 — bounding the drift at the source
-    #   beats widening the window to tolerate it (mesh 4k spp64: 83 ->
-    #   343 Mrays/s, and per-sample epochs are lower-variance too;
-    #   QUALITY.json). The static cull tree (bench config 3) still
-    #   prefers window=16 (319 vs 295 measured): its coarse dir-256
-    #   cells saturate, so epoch folding wins there.
+    #   Per-sample epochs (window=1) are lower-variance (QUALITY.json);
+    #   bounding the drift at the source (pallas_regen_drift) is the
+    #   other way to keep lanes on one epoch.
     # Spectral
     hero_wavelengths: int = 1          # 1 reproduces the reference (one
     #   lambda per sample, wgsl :995). >1 enables hero-wavelength sampling
@@ -176,180 +172,60 @@ class RenderConfig:
     #   holds). Camera-only blur; geometry is static. False compiles to
     #   the unchanged reference sampling.
     # Geometry path
-    use_bvh: bool = False              # True: per-ray BVH traversal (XLA
-    #   path only). The Pallas kernels accelerate big scenes their own way:
-    #   the tile-coherent cull tree (pallas_cluster_size) — a BVH traversed
-    #   at whole-tile granularity with lax.cond votes.
+    use_bvh: bool = False              # True: per-ray BVH traversal for
+    #   closest-hit triangles (XLA path only; shadow rays and spheres stay
+    #   brute force)
     # Execution shape
-    backend: str = "xla"               # "xla" | "pallas" (fused megakernel)
-    #   | "wavefront" | "wavefront_pallas" | "wavefront_fused" (the three
-    #   wavefront tracers, camera-path+NEE only — BASELINE config 5; see
-    #   render._wavefront_dispatch). Scenes beyond a kernel's static budget
-    #   auto-fall-back to the XLA implementation of the same algorithm.
+    backend: str = "xla"               # "xla" (the reference integrator) |
+    #   "pallas" (the regenerative megakernel, kernels/mega_regen.py;
+    #   sphere + small-mesh scenes, raises on larger ones) | "wavefront"
+    #   (the XLA pool tracer, camera path + NEE only — BASELINE config 5)
     tile_size: int = 16384             # pixels per tile in the XLA path
-    pallas_lanes: int = 4096           # pixels per Pallas tile (R=lanes/128).
-    #   Swept on v5e @1080p (regenerative kernel): 1024->778, 2048->893,
-    #   4096->900, 8192->851 Mrays/s — 4096 amortizes instruction issue
-    #   best before register spills bite. (The tile-synchronized kernel,
-    #   with its much larger live carry set, prefers 1024.)
-    pallas_regen: bool = True          # per-lane sample regeneration kernel
-    #   (kernels/mega_regen.py): ~100% occupancy, 1.4x the tile-synchronized
-    #   kernel, bit-comparable results. False = tile-sync kernel.
+    pallas_lanes: int = 256            # pixels per fused-kernel tile:
+    #   128 x a power of two (R = lanes/128 rows of 128), at most 512 on a
+    #   GPU. One program per tile, lanes/16 warps (two threads per lane);
+    #   see PERF.md for the tile x warps sweep behind both.
     pallas_regen_drift: int = 0        # bound on how many samples a regen
-    #   lane may run AHEAD of its tile's slowest lane (0 = unbounded, the
-    #   round-1 behavior). Lanes drift apart within a render call (path
-    #   lengths vary), so by late samples a tile's live lanes span many
-    #   sample indices — many distinct photon-strata beams — and the
-    #   culling votes stop pruning (measured: config-3 spp 64 runs 7%
-    #   slower per segment than spp 32; mesh scenes 2-4x). A bound of W
-    #   caps the live-epoch spread at W at an occupancy cost: a lane at
-    #   the bound idles until the tile minimum advances. SCHEDULING
-    #   only — the traced samples, streams, and sums are bit-identical.
-    #   ROUND-3: the occupancy cost is far smaller than the coherence
-    #   win on every walk-based scene measured — drift=1 (near-lockstep
-    #   samples) + window=1 is the shipped stack for bench configs
-    #   6/7/8 (mesh 4k spp64: drift0/w8 83 -> drift1/w1 343 Mrays/s;
-    #   65k 20 -> 85; 16k spheres 51 -> 72), and config 3 ships
-    #   drift=1 + window=16 (334.8 in the round-3 BENCH_ALL artifact).
-    #   Loose bounds (drift=8) capture almost none of the win — bound
-    #   tightly or not at all.
+    #   lane may run AHEAD of its tile's slowest lane (0 = unbounded).
+    #   Lanes drift apart within a render call (path lengths vary), so by
+    #   late samples a tile's live lanes span many sample indices — many
+    #   distinct photon-strata beams — and the culling votes stop pruning.
+    #   A bound of W caps the live-epoch spread at W at an occupancy cost:
+    #   a lane at the bound idles until the tile minimum advances.
+    #   SCHEDULING only — the traced samples, streams, and sums are
+    #   bit-identical. Loose bounds capture little of the coherence:
+    #   bound tightly or not at all.
     pallas_regen_drift_cam: int = 0    # CAMERA-spawn drift bound (0 = use
-    #   pallas_regen_drift). Round-4 stats on the field scene measured
-    #   ~29% of lane-slots stalled at the tight drift gate while camera
-    #   work is only ~14% of lane time: with drift_cam > drift, a lane
-    #   done with photons of sample s may start camera(s+1..s+drift_cam)
-    #   early — primary rays are pixel-coherent regardless of strata
-    #   epoch — while PHOTON-phase entry stays gated at the tight bound
-    #   (spawn_p holds at k==0 until the tile minimum catches up). The
-    #   per-lane sequence camera(s) -> photons(s) is unchanged, so
-    #   results stay bit-identical; this only overlaps one lane's camera
-    #   path with other lanes' photon walks.
-    pallas_static_unroll: int = 32     # spheres baked into the instruction
-    #   stream up to this count (fastest; compile grows with count — 257
-    #   spheres measured 23.5 s-6 min, the spread being compile-service
-    #   contention, README "First run"). Above it: SMEM-table fori sweep
-    #   (fast compile,
-    #   ~4x slower steady-state). Raise for benchmark-grade throughput on
-    #   big instanced scenes.
-    pallas_block_tiles: bool = True    # map each Pallas tile to an
+    #   pallas_regen_drift): with drift_cam > drift, a lane done with
+    #   photons of sample s may start camera(s+1..s+drift_cam) early —
+    #   primary rays are pixel-coherent regardless of strata epoch — while
+    #   PHOTON-phase entry stays gated at the tight bound (spawn_p holds at
+    #   k==0 until the tile minimum catches up). The per-lane sequence
+    #   camera(s) -> photons(s) is unchanged, so results stay
+    #   bit-identical; this only overlaps one lane's camera path with other
+    #   lanes' photon walks.
+    pallas_static_unroll: int = 32     # primitives baked into the
+    #   instruction stream up to this count (constant-folded; compile time
+    #   grows with the count). Above it: a device-memory table sweep (a
+    #   fori_loop; compile time independent of the count).
+    pallas_block_tiles: bool = True    # map each fused-kernel tile to an
     #   (R x 128)-pixel image BLOCK instead of `lanes` consecutive linear
-    #   pixels. A 32x128 block subtends a far narrower frustum than a
-    #   2-row slab of a 1080p image, so tile-level votes (cluster culling,
-    #   early loop exit) prune much more. Pixel<->plane order permutation
-    #   is paid once per render call in XLA (reshape/transpose), never in
-    #   the kernel.
-    pallas_cluster_size: int = 16      # two-level sphere culling in the
-    #   static-unroll mode: spheres are median-split into spatial groups of
-    #   this size, and each group's unrolled sweep is gated by a whole-tile
-    #   lax.cond on its AABB slab test (any active lane hits the box AND is
-    #   still closer than its current best). Tile-coherent rays skip most
-    #   groups. 0 disables (flat sweep). Only engages above 4x this count.
-    pallas_cluster_ordered: bool = False  # drive the static cull tree's
-    #   BAKED leaf sweeps from the dynamic near-to-far stack walk
-    #   (kernels/bvh_pallas._bvh_walk + lax.switch over the unrolled leaf
-    #   bodies) instead of fixed DFS order: nearer leaves sweep first, the
-    #   per-lane t-cap tightens early, and far leaves prune away — the
-    #   ordering that measured +40% in the all-dynamic walk, without its
-    #   SMEM scalar loads for sphere data (only the tiny node table is
-    #   SMEM). Closest-hit only; shadow sweeps have a fixed t_max and keep
-    #   the DFS cull loop.
-    sphere_chunk: int = 512            # primitive chunk sizes for the sweeps
-    tri_chunk: int = 256
-    pallas_bvh: bool = True            # meshes beyond pallas_static_unroll
-    #   run a whole-tile DYNAMIC BVH walk inside the fused kernels (SMEM
-    #   node/triangle tables + per-tile stack, kernels/bvh_pallas.py):
-    #   compile time is O(1) in mesh size, budget MAX_BVH_TRIS. False
-    #   restores the flat SMEM-table sweep (MAX_DYNAMIC_TRIS).
-    pallas_bvh_rows: int = 0           # predicated leaf sweeps in the
-    #   dynamic walk: >0 splits each leaf's VECTOR sweep into row-clusters
-    #   of this many (8-sublane x 128-lane) rows, each gated by a
-    #   lax.cond on that cluster's own leaf-box vote. The 16 scalar loads
-    #   per primitive stay shared tile-wide (hoisted before the cluster
-    #   loop); only the per-lane intersection math is skipped for
-    #   clusters that don't want the leaf. 0 = whole-tile sweep.
-    pallas_bvh_leaf: int = 32          # primitives per BVH leaf in that walk
-    #   (tile-level votes want coarser leaves than the XLA path's 2;
-    #   measured on 1080p torus meshes: 16/32/64 -> 47/51/53 Mrays/s at 1k
-    #   tris, 15.1/15.3/15.7 at 4k — prefer 64 for dense frustum-filling
-    #   meshes, 16 for the sphere walk AND for chunked spread-out scenes
-    #   (round 4: leaf 16 + chunk 1024 beat leaf 64 + chunk 2048 by
-    #   11-34% on the field/64.8k/16k-sphere scenes); cf. docs/DESIGN.md)
-    pallas_bvh_width: int = 0          # wide-branching BVH (round 5;
-    #   SURVEY §7 "shallow wide-branching BVH"): >= 3 collapses the walk's
-    #   trees (single-table AND chunked top/sub trees, triangles AND
-    #   spheres) into up-to-this-many-ary nodes (accel.collapse_wide) and
-    #   each inner visit tests all child boxes at once, sorting the voted
-    #   ones near-to-far with a compare-swap network — one pop + one
-    #   leaf/inner cond amortizes over ~log2(width) binary levels,
-    #   attacking the measured scalar-issue serialization bound of the
-    #   walks (docs/DESIGN.md roofline). 0/2 = binary walk. Max 8 (a wide
-    #   node packs 8 child slots into one 16-field record).
-    pallas_bvh_sah: bool = False       # build the walk's trees with binned
-    #   surface-area-heuristic splits (accel.build_bvh sah=True) instead of
-    #   the reference's median split (instance.rs:160-173): same node
-    #   layout/traversal, fewer leaf visits per ray on irregular meshes.
-    #   Host build only — image differs from the median tree solely through
-    #   triangle visit ORDER (bit-equal hits; see tests/test_bvh_pallas.py).
-    pallas_bvh_chunk: int = 2048       # chunked (any-size) scene mode:
-    #   meshes beyond MAX_BVH_TRIS (and, with pallas_sphere_bvh, sphere
-    #   sets beyond MAX_BVH_SPHERES) split into chunks of this many
-    #   primitives, each packed (with its own sub-BVH) into a fixed-stride
-    #   HBM slab; only the tiny coarse tree stays SMEM-resident, and the
-    #   walk DMAs a chunk's slab into SMEM scratch when the tile's rays
-    #   vote for its box (near-to-far worklist + live-t re-vote,
-    #   kernels/bvh_pallas.build_chunked_*_tables). Removes the fused
-    #   path's scene-size caps. 0 disables (big scenes fall back to XLA).
-    pallas_chunk_prefetch: bool = False  # overlap the next chunk slab's
-    #   HBM->VMEM read with the current chunk's SMEM sweep (chunked modes
-    #   only; bit-identical results either way)
-    pallas_chunk_interleave: bool = False  # single-phase chunked walk:
-    #   DMA + sub-sweep AT the top tree's leaves inside one ordered
-    #   descent under live t-caps (bvh_pallas._chunked_walk_interleaved)
-    #   instead of the two-phase worklist. Bit-identical results.
-    #   Measured SLOWER on the 65k torus (32 vs 46 Mrays/s — the nested
-    #   while structure costs more than capless phase-1 chunk visits);
-    #   kept as an option for scenes with much deeper chunk overlap.
-    #   Ignored when pallas_chunk_prefetch is set (the lookahead pipeline
-    #   needs the explicit worklist).
-    pallas_bvh_chunk_threshold: int = 0  # primitive count above which
-    #   chunked mode engages; 0 = MAX_BVH_TRIS / MAX_BVH_SPHERES (tests
-    #   lower it to force chunking on small scenes)
-    pallas_mxu_leaf: bool = False      # EXPERIMENTAL (round 4): run the
-    #   single-table triangle walk's closest-hit leaf tests as MXU
-    #   all-pairs matmuls (Moller-Trumbore is linear in [d | o x d | o |
-    #   1]; bvh_pallas.build_tri_gmat) instead of the unrolled VPU/scalar
-    #   sweep. Leaf-level: 1.49x the sweep + ~7x faster compiles
-    #   (tools/probe_mxu_leaf.py). END-TO-END the integration measured
-    #   SLOWER (mesh4k 228 vs 294 — walk-context overheads eat the win;
-    #   docs/DESIGN.md MXU-leaf section) — kept as the measured prototype
-    #   of the representation, not a recommended mode. NOT bit-identical
-    #   to the sweep/XLA path (~0.3% grazing-ray decision flips); the
-    #   exactness contracts hold with the flag off. Regenerative kernel,
-    #   non-chunked meshes, closest-hit only.
-    pallas_tri_clip: bool = True       # run the sphere pass first and clip
-    #   the triangle walks (single-table + chunked, incl. the chunked
-    #   phase-1 top walk) at the sphere-hit distance: ground hits bound
-    #   nearly every bounce, so mesh nodes/chunks beyond them prune before
-    #   any sweep. Bit-safe (see bvh_pallas.closest_tri_bvh); flag exists
-    #   to A/B the scheduling cost of the sph->tri data dependency.
-    pallas_sphere_bvh: bool = False    # many-sphere scenes (config 3) run
-    #   the same dynamic whole-tile walk instead of the static cull tree:
-    #   ordered near-to-far descent + per-lane t caps, O(1) compile time.
-    #   Scene-spanning spheres (the ground) stay in a flat static sweep.
+    #   pixels. A block subtends a narrower frustum than a slab of a 1080p
+    #   row, so tile-level votes (cluster culling, early loop exit) prune
+    #   more. The pixel<->plane order permutation is paid once per render
+    #   call in XLA (reshape/transpose), never in the kernel.
+    pallas_cluster_size: int = 16      # two-level culling in the
+    #   static-unroll mode: primitives are median-split into spatial groups
+    #   of this size, and each group's unrolled sweep is gated by a
+    #   whole-tile lax.cond on its AABB slab test (any active lane hits the
+    #   box AND is still closer than its current best). Tile-coherent rays
+    #   skip most groups. 0 disables (flat sweep). Only engages above 4x
+    #   this count.
+    sphere_chunk: int = 512            # primitive chunk sizes for the XLA
+    tri_chunk: int = 256               # sweeps (ops/intersect.py)
     # Wavefront tracer (tpurt.wavefront; ref: src/wavefront.rs finished form)
     wf_pool: int = 262144              # persistent ray-pool capacity Q
     wf_max_sweeps: int = 100000        # safety bound on the sweep loop
-    wf_chunk_sort: bool = False        # GLOBAL ray reordering by chunk
-    #   (round 5; the compaction idea the reference left unfinished —
-    #   wavefront.wgsl:28-31 queues declared never used — extended from
-    #   materials to GEOMETRY): on chunked scenes the pool wavefront
-    #   sorts all Q slots by each ray's nearest-entry chunk between
-    #   bounces, so every tile's chunked walk votes ~1 slab instead of
-    #   every slab any of its 4096 random rays crosses. Pure scheduling:
-    #   per-slot streams are (pixel, sample)-keyed, so ray counts are
-    #   exactly unchanged (image equal up to splat-order float
-    #   reassociation). Pool wavefront backend only; no-op when no
-    #   chunked mode engages.
     sky_gradient: bool = False         # legacy wavefront sky (wavefront.wgsl
     #   :129-131); False = black sky like the mega kernel (:617-620)
     # Environment emission (EXTENSION — the reference's sky returns black,
@@ -377,20 +253,6 @@ class RenderConfig:
     #   leave 0 for converged or benchmark renders.
     # Instrumentation
     count_rays: bool = True            # accumulate traced-segment counter
-    count_iters: bool = False          # regen kernel: carry a per-tile
-    #   loop-iteration counter (rays_ref col 1) — the occupancy input of
-    #   tpurt/roofline.py. Compiled out by default: the counter itself is
-    #   one scalar add, but keeping the TIMED bench kernels byte-identical
-    #   to the shipped ones matters more than saving the roofline probe a
-    #   second compile. render_regen_stats forces it on.
-    count_walk_stats: bool = False     # regen kernel: per-tile diagnostic
-    #   counters (phase-active lane sums per iteration; chunked-walk
-    #   worklist lengths and chunks actually swept, closest vs shadow) —
-    #   the roofline/scheduling instrumentation behind docs/DESIGN.md's
-    #   chunked-mode analysis. Costs two plane reductions per iteration
-    #   plus scalar adds per chunk visit; leave off for benchmark runs.
-    #   Read back via kernels.mega_regen.render_regen_stats(full=True)
-    #   or tools/probe.py --set count_walk_stats=True.
     # Tonemap defaults (ref: blit.rs:99-101)
     tonemap_key: float = 0.8
     tonemap_saturation: float = 1.0
@@ -412,11 +274,10 @@ class RenderConfig:
         # photon-walk RR thinning (32% fewer segments at unchanged
         # variance on NEE-lit scenes)
         "fast": dict(hero_wavelengths=4, qmc=True, photon_rr_scale=0.5),
-        # the measured walk-scene stack (dynamic/chunked BVH scenes —
-        # meshes and many-sphere instancing): tile-coherent stratified
-        # photon emission + per-sample beam epochs + the tight drift
-        # bound (the round-3 scheduling discovery; bench configs 6-8).
-        # Unbiased; see QUALITY.json / docs/DESIGN.md for the numbers.
+        # the walk-scene stack (meshes and many-sphere instancing):
+        # tile-coherent stratified photon emission + per-sample beam
+        # epochs + the tight drift bound. Unbiased; QUALITY.json holds
+        # its variance at equal spp.
         "walk": dict(photon_strata=16, photon_strata_dir=4096,
                      photon_strata_shared_k=True, photon_strata_bounce=True,
                      camera_strata_bounce=True, photon_strata_window=1,

@@ -5,7 +5,7 @@ accumulation only, src/kernels/blit.wgsl:38); this is a tpurt extension
 for fast previews and offline animation, where per-frame spp is small and
 single-wavelength spectral noise dominates.
 
-Design (TPU-first):
+Design (array-first):
   * `render_aovs` shoots one deterministic center ray per pixel (no RNG)
     through the existing batched intersector — first-hit albedo, shading
     normal, and depth planes, one jit, static shapes.
@@ -14,7 +14,7 @@ Design (TPU-first):
     Fast Global Illumination Filtering"): `iterations` passes of a dilated
     5x5 B3-spline kernel whose taps are re-weighted by color, normal, and
     depth edge-stopping functions. Each pass is 25 statically-shifted
-    whole-image multiply-adds — pure elementwise VPU work that XLA fuses
+    whole-image multiply-adds — pure elementwise work that XLA fuses
     per tap; no gathers, no data-dependent shapes.
   * Radiance is demodulated by albedo before filtering and remodulated
     after, so texture/material detail survives aggressive smoothing and

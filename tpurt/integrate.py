@@ -1,7 +1,7 @@
 """The light-transport integrator: spectral path tracing with next-event
 estimation plus the SPPM-style per-pixel photon pass.
 
-This is the TPU rewrite of the reference mega kernel
+This is the array-program rewrite of the reference mega kernel
 (ref: src/kernels/mega_kernel.wgsl:568-1022).  The reference runs one scalar
 thread per pixel with divergent `break`s; here a *tile* of pixels advances in
 lockstep through masked, fixed-shape array ops:
@@ -11,14 +11,14 @@ lockstep through masked, fixed-shape array ops:
   * divergent break/RR         -> mask updates (`jnp.where`)
   * material branching         -> both branches computed, per-lane select
                                   (material count is tiny; select is cheaper
-                                  than any divergence mechanism on a VPU)
+                                  than divergence in lockstep lanes)
   * per-thread vispoint buffer -> a persistent (N, ...) pytree threaded
                                   through frames (reference never clears its
                                   vispoint buffer; neither do we)
 
 Every function takes flat (N,) lane batches, so the identical code drives the
-XLA path (render.py tiles the image) and the Pallas megakernel (pixel tiles
-resident in VMEM).  RNG streams are bit-exact PCG (tpurt.ops.rng); draw
+XLA path (render.py tiles the image) and the component-form fused kernel
+(tpurt.kernels, the same formulas on per-lane planes).  RNG streams are bit-exact PCG (tpurt.ops.rng); draw
 *order* differs from the scalar reference only where masking forces all lanes
 to draw (distribution and independence are preserved, so images match within
 Monte-Carlo noise, which is the parity contract from SURVEY.md §4).
@@ -76,11 +76,11 @@ _HIT = MISS * 0.5  # any t below this is a real hit
 
 def material_lookup(scene, mat_id):
     """Per-lane material attributes via one-hot matmul (gather-free; M is
-    tiny so the (N, M) one-hot is cheap and MXU/VPU friendly)."""
+    tiny so the (N, M) one-hot is cheap)."""
     M = scene.mat_color.shape[0]
     oh = (mat_id[:, None] == jnp.arange(M, dtype=jnp.int32)).astype(jnp.float32)
-    # HIGHEST: default TPU matmul precision rounds the selected material
-    # attributes to bf16 otherwise
+    # HIGHEST: a float32 matmul may otherwise run in TF32 (GPU) and round
+    # the selected material attributes
     mm = lambda a, b: jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
     color = mm(oh, scene.mat_color)
     rough = mm(oh, scene.mat_rough)

@@ -1,95 +1,85 @@
-"""Pallas TPU megakernel: the fused per-tile path tracer + photon pass.
+"""Fused-kernel scaffolding: the frozen scene, the component-form
+integrator pieces and the plane layout of the regenerative megakernel
+(tpurt.kernels.mega_regen).
 
-This is the hot loop of the renderer (ref: src/kernels/mega_kernel.wgsl:
-cs_main :984-1021, recursive_trace :865-982, trace_photon :745-861), built
-for the TPU instead of translated from WGSL:
+The hot loop of the renderer (ref: src/kernels/mega_kernel.wgsl: cs_main
+:984-1021, recursive_trace :865-982, trace_photon :745-861) runs as one
+``pallas_call`` over pixel tiles:
 
-  * One ``pallas_call`` advances the whole frame: grid = pixel tiles, each
-    program owns `pallas_lanes` pixels laid out as (R, 128) float32 planes —
-    full 8x128 VPU tiles, no (N, 3) padding waste (see tpurt.ops.soa).
-  * The ENTIRE bounce loop runs with path state resident in VMEM/registers.
-    The XLA path round-trips loop state through HBM every bounce; here HBM
-    traffic is one block-in + block-out of the 16 accumulation/vispoint
-    planes per tile, double-buffered by the BlockSpec pipeline.
-  * **The scene is a compile-time constant** (``freeze_scene``): sphere
-    centers, materials and lights bake into the instruction stream, exactly
-    like the reference hard-codes its scene at startup (ref: lib.rs:220-447).
-    Mosaic then constant-folds aggressively — diffuse occluders skip the
-    whole Fresnel transmission chain, padding primitives vanish, and
-    point-vs-area light branches resolve at trace time.
-  * Vispoints are masked-written straight to the output block inside the
-    bounce loop instead of being carried: a while_loop carry is a live
-    register for the whole loop, and spilling 13 extra planes is what caps
-    the tile size (measured: quadratic slowdown with R before this change).
-  * Bounce loops are ``lax.while_loop``s that exit as soon as every lane in
-    the tile is dead — the tile-coherent analogue of the reference's
-    per-thread ``break`` (wgsl :885,903,981).
+  * each program owns `pallas_lanes` pixels laid out as (R, 128) float32
+    planes (R = lanes / 128): one lane per pixel, the reference's own
+    one-invocation-per-pixel model (see tpurt.ops.soa);
+  * the whole bounce loop runs with path state in registers; HBM traffic
+    is the 16 accumulation/vispoint planes of the tile;
+  * **the scene is a compile-time constant** (``freeze_scene``): sphere
+    centers, materials and lights bake into the instruction stream, like
+    the reference hard-codes its scene at startup (ref: lib.rs:220-447),
+    so diffuse occluders skip the Fresnel transmission chain, padding
+    primitives vanish, and point-vs-area light branches resolve at trace
+    time.  Above ``cfg.pallas_static_unroll`` primitives the sweep reads a
+    primitive table in device memory instead.
 
 RNG draw order matches tpurt.integrate *exactly*, so the kernel and the XLA
 integrator produce the same image for the same seed (up to float
 reassociation); tests/test_mega_pallas.py asserts this.
 
-Scope: sphere + small-mesh scenes (every benchmark config). Meshes beyond
-the SMEM-table budget (BVH territory) fall back to the XLA integrator —
-see the dispatch in tpurt.render.
+Scope: sphere + small-mesh scenes (``supports_scene``). Larger scenes run
+through the XLA integrator (``backend="xla"``, optionally ``use_bvh``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from tpurt.config import RenderConfig
 from tpurt.ops import rng as rngmod
 from tpurt.ops import soa as s
-from tpurt.ops.bsdf import INV_PI, fr_dielectric
-from tpurt.ops.spectra import (
-    DISPERSION_B,
-    VISIBLE_MIN,
-    VISIBLE_RANGE,
-    blackbody,
-    hero_emission_table,
+from tpurt.ops.bsdf import fr_dielectric
+from tpurt.ops.scatter_c import (
+    EPS,
+    diffuse_scatter_c,
+    scatter_dielectric_c,
+    scatter_metal_c,
 )
+from tpurt.ops.spectra import DISPERSION_B, VISIBLE_RANGE, blackbody
 
-EPS = 1e-5
 MISS = np.float32(1e30)  # numpy scalar: kernels can't capture device arrays
 _HIT = np.float32(MISS * 0.5)
 PHOTON_CONE_COS = 0.707  # ref: mega_kernel.wgsl:103
 
 N_CHANNELS = 16  # rgb_sum 3 | vis_pos 3 | vis_norm 3 | vis_wo 3 | vis_tp 3 | vis_mat 1
-# cfg.count_walk_stats diagnostic cells (regen kernel scratch): 0-3 regen
-# phase counters, 4-7 chunked-walk worklist/swept pairs, 8-11 cull-tree
-# branch-mix pairs (closest visited/taken, shadow visited/taken — the
-# roofline's measured cond mix, VERDICT r4 item 4)
-N_STAT_CELLS = 12
 # channel index bases for the persistent planes
 _VPOS, _VNORM, _VWO, _VTP, _VMAT = 3, 6, 9, 12, 15
 
-# Scenes up to cfg.pallas_static_unroll spheres are unrolled into the
+# Scenes up to cfg.pallas_static_unroll primitives are unrolled into the
 # instruction stream (constant folding: diffuse occluders lose their Fresnel
-# chains, padding vanishes). Above it, spheres live in an SMEM table swept by
-# a fori_loop — same physics, runtime material branches. Tradeoff measured at
-# 257 spheres on v5e: unroll = 25s-6min Mosaic compile (contention
-# noise, README 'First run') / 66 Mrays/s steady;
-# SMEM sweep = seconds of compile / 15 Mrays/s (the loop serializes).
-MAX_DYNAMIC_SPHERES = 512  # SMEM table budget (S x 8 f32)
-MAX_DYNAMIC_TRIS = 256     # SMEM table budget (T x 16 f32)
+# chains, padding vanishes). Above it, primitives live in a device-memory
+# table swept by a fori_loop — same physics, runtime material branches, a
+# compile time independent of the count. The sweep is brute force, so the
+# kernel takes tables only up to these counts; larger scenes belong to the
+# XLA integrator's BVH (cfg.use_bvh).
+MAX_DYNAMIC_SPHERES = 512  # sphere table rows (S x 8 f32)
+MAX_DYNAMIC_TRIS = 256     # triangle table rows (T x 16 f32)
 
 
 def _mask_i32(m):
-    # bool mask -> i32 carry (Mosaic while_loops cannot yield i1 vectors)
+    # bool mask -> i32 plane (loop carries and reductions stay integer)
     return jnp.where(m, jnp.int32(1), jnp.int32(0))
 
 
 def _mask_f32(m):
     return jnp.where(m, jnp.float32(1.0), jnp.float32(0.0))
+
+
+def _any(m):
+    """Whole-tile vote: does any lane of the plane `m` hold? A max over an
+    i32 plane (the Triton lowering has no boolean or-reduction)."""
+    return jnp.max(_mask_i32(m)) > 0
 
 
 # ----- frozen (compile-time) scene -----
@@ -221,36 +211,26 @@ def freeze_scene(scene) -> FrozenScene:
 
 
 def supports_scene(scene, cfg=None) -> bool:
-    """The Pallas megakernel covers sphere + mesh scenes: primitives unroll
-    below cfg.pallas_static_unroll (clustered with AABB culling above
-    4x pallas_cluster_size); above it, triangles run the whole-tile dynamic
-    BVH walk (kernels/bvh_pallas.py, budget MAX_BVH_TRIS) and spheres the
-    SMEM-table sweep (MAX_DYNAMIC budget). Scenes beyond run on XLA."""
-    tri_cap = sph_cap = 0
-    tri_dyn = MAX_DYNAMIC_TRIS
-    sph_dyn = MAX_DYNAMIC_SPHERES
-    if cfg is not None:
-        tri_cap = sph_cap = cfg.pallas_static_unroll
-        if cfg.pallas_bvh:
-            from tpurt.kernels.bvh_pallas import MAX_BVH_TRIS
-            tri_dyn = MAX_BVH_TRIS
-            # chunked mode lifts the cap ONLY where it actually engages
-            # (the SAME predicate the dispatch uses): a raised threshold
-            # leaves a gap band that must fall back to XLA, not the flat
-            # sweep
-            if _tri_chunk_engages(scene.num_triangles, cfg):
-                tri_dyn = scene.num_triangles
-        if cfg.pallas_sphere_bvh:
-            from tpurt.kernels.bvh_pallas import (MAX_BVH_SPHERES,
-                                                  n_tree_spheres)
-            # the BVH/chunk budgets bound the TREE side of the huge-sphere
-            # split, not the total (up to MAX_ALWAYS_SPHERES huge spheres
-            # sweep flat regardless of count)
-            tree = n_tree_spheres(scene.sph_radius)
-            if tree <= MAX_BVH_SPHERES or _sph_chunk_engages(tree, cfg):
-                sph_dyn = max(sph_dyn, scene.num_spheres)
-    return (scene.num_triangles <= max(tri_dyn, tri_cap)
-            and scene.num_spheres <= max(sph_dyn, sph_cap))
+    """The fused kernel covers sphere + small-mesh scenes: primitives unroll
+    up to cfg.pallas_static_unroll (with the tile-coherent cull tree above
+    4x pallas_cluster_size), and above it sweep a device-memory table of at
+    most MAX_DYNAMIC_SPHERES / MAX_DYNAMIC_TRIS rows."""
+    unroll = cfg.pallas_static_unroll if cfg is not None else 0
+    return (scene.num_triangles <= max(MAX_DYNAMIC_TRIS, unroll)
+            and scene.num_spheres <= max(MAX_DYNAMIC_SPHERES, unroll))
+
+
+def check_scene(scene, cfg) -> None:
+    """Raise unless the fused kernel takes this scene. backend="pallas"
+    never reroutes a scene to another integrator behind the caller's back."""
+    if not supports_scene(scene, cfg):
+        raise ValueError(
+            f"backend='pallas' takes at most "
+            f"{max(MAX_DYNAMIC_SPHERES, cfg.pallas_static_unroll)} spheres "
+            f"and {max(MAX_DYNAMIC_TRIS, cfg.pallas_static_unroll)} "
+            f"triangles; this scene has {scene.num_spheres} spheres and "
+            f"{scene.num_triangles} triangles — render it with "
+            f"backend='xla' (use_bvh=True for meshes)")
 
 
 # ----- component-form integrator pieces (mirror tpurt.integrate) -----
@@ -407,38 +387,24 @@ def _tree_leaves(node):
     return [lf for ch in node.children for lf in _tree_leaves(ch)]
 
 
-def _tree_sweep(node, o, inv, state, vote, t_cap, leaf_fn, counter=None):
+def _tree_sweep(node, o, inv, state, vote, t_cap, leaf_fn):
     """Whole-tile conditional sweep over the cull tree's LEAVES (DFS
-    order): one lax.cond per leaf box. Measured on the 257-sphere 1080p
-    scene, gating the internal nodes too (true nested descent) is ~5%
-    SLOWER — the top boxes almost never prune for a whole tile, so their
-    conds are pure overhead; all the pruning power is at the leaves.
+    order): one lax.cond per leaf box. Gating the internal nodes too (true
+    nested descent) costs more than it prunes: the top boxes almost never
+    prune for a whole tile, so all the pruning power is at the leaves.
 
     vote(state) -> lanes whose result still matters; t_cap(state) ->
     per-lane upper bound on useful entry distance (current best hit /
     shadow range); leaf_fn(prims, state) -> state after the unrolled
-    leaf sweep.
-
-    counter = (stats_ref, base): cfg.count_walk_stats branch-mix cells —
-    stats_ref[base] += leaf-cond sites visited, stats_ref[base+1] +=
-    sweeps actually TAKEN (the measured take-rate that collapses the
-    roofline's cond min/max interval into a point estimate; VERDICT r4
-    item 4, tpurt/roofline.py cluster_leaf_ops). The writes sit OUTSIDE
-    the cond (pred is already a traced scalar), so the counted kernel's
-    control flow is unchanged."""
+    leaf sweep."""
     for leaf in _tree_leaves(node):
         tn, tf = _aabb_entry_exit(leaf.bmin, leaf.bmax, o, inv)
         # negated compares: a NaN slab test (d component exactly 0 with o
         # exactly on the plane -> 0*inf) must vote HIT (conservative — an
         # extra sweep never changes results; a dropped vote can cull a
         # leaf some lane actually hits)
-        pred = jnp.any(vote(state) & ~((tn > tf) | (tf <= 0.0)
-                                       | (tn >= t_cap(state))))
-        if counter is not None:
-            ref, base = counter
-            ref[base] = ref[base] + jnp.float32(1.0)
-            ref[base + 1] = ref[base + 1] + jnp.where(
-                pred, jnp.float32(1.0), jnp.float32(0.0))
+        pred = _any(vote(state) & ~((tn > tf) | (tf <= 0.0)
+                                    | (tn >= t_cap(state))))
         state = jax.lax.cond(
             pred,
             lambda st, lf=leaf: leaf_fn(lf.prims, st),
@@ -447,74 +413,21 @@ def _tree_sweep(node, o, inv, state, vote, t_cap, leaf_fn, counter=None):
     return state
 
 
+def huge_sphere_mask(r: np.ndarray) -> np.ndarray:
+    """Which radii count as scene-spanning (e.g. the r=1000 ground,
+    lib.rs:233): they would bloat every cull-tree box, so they sweep flat."""
+    med = float(np.median(r))
+    return r > max(10.0 * med, 1e-3)
+
+
 def _sphere_cull_tree(spheres, leaf_size: int) -> _CullTree:
-    from tpurt.kernels.bvh_pallas import huge_sphere_mask
     c = np.asarray([sp.c for sp in spheres], np.float32).reshape(-1, 3)
     r = np.asarray([sp.r for sp in spheres], np.float32).reshape(-1, 1)
-    # THE shared scene-spanning predicate (bvh_pallas.huge_sphere_mask) —
-    # an inline copy here would let the static cull tree and the BVH walk
-    # drift on which spheres count as "always" for the same scene
     huge = huge_sphere_mask(r[:, 0]) if len(spheres) else np.zeros(0, bool)
     return _build_cull_tree(tuple(spheres), c - r, c + r, leaf_size, huge)
 
 
-def _cull_tree_node_table(tree: _CullTree):
-    """Host: flat node table for the ORDERED walk over the static cull
-    tree (cfg.pallas_cluster_ordered) — boxes/topology packed exactly like
-    a bvh_pallas SMEM table (leaf `first` = leaf ordinal, `count` = 1);
-    primitive data is NOT in the table — leaves stay baked constants
-    inside lax.switch branches. Returns (packed (rows, 128) np.f32,
-    leaf-prims list in ordinal order)."""
-    from tpurt.kernels import bvh_pallas
-    nodes_f, nodes_i, leaves = [], [], []
-
-    def rec(n):
-        idx = len(nodes_f)
-        nodes_f.append(list(n.bmin) + list(n.bmax) + [0.0, 0.0])
-        nodes_i.append([0, 0, 0, 0])
-        if n.prims:
-            nodes_i[idx] = [0, 0, len(leaves), 1]
-            leaves.append(n.prims)
-        else:
-            nodes_i[idx][0] = rec(n.children[0])
-            nodes_i[idx][1] = rec(n.children[1])
-        return idx
-
-    rec(tree.root)
-    packed = bvh_pallas.pack_tables(
-        np.zeros((0, 16), np.float32), np.asarray(nodes_f, np.float32),
-        np.asarray(nodes_i, np.int32), leaf_size=0)
-    return packed, leaves
-
-
-def _closest_sphere_clustered_ordered(tree: _CullTree, leaves, node_ref,
-                                      o, d, mask):
-    """_closest_sphere_clustered with the leaf visits driven by the
-    near-to-far stack walk (bvh_pallas._bvh_walk) instead of fixed DFS
-    order: the lax.switch branches are the SAME baked unrolled sweeps,
-    but nearer leaves sweep first, so the per-lane t-cap tightens early
-    and far leaves prune away (the ordering that measured +40% in the
-    all-dynamic walk; docs/DESIGN.md)."""
-    from tpurt.kernels import bvh_pallas
-    a = s.vdot(d, d)
-    state = _sweep_spheres_static(tree.always, o, d, a,
-                                  _sphere_state_init(o))
-    inv = tuple(1.0 / d[c] for c in range(3))
-    nodes = bvh_pallas._PackedTable(node_ref, base0=0)
-    branches = [
-        (lambda st, prims=prims: _sweep_spheres_static(prims, o, d, a, st))
-        for prims in leaves]
-
-    def leaf_fn(first, count, st):
-        return jax.lax.switch(first, branches, st)
-
-    st = bvh_pallas._bvh_walk(
-        nodes, o, inv, vote=lambda st: mask, t_cap=lambda st: st[0],
-        leaf_fn=leaf_fn, state=state)
-    return _sphere_state_finish(o, d, st)
-
-
-def _closest_sphere_clustered(tree: _CullTree, o, d, mask, counter=None):
+def _closest_sphere_clustered(tree: _CullTree, o, d, mask):
     a = s.vdot(d, d)
     state = _sweep_spheres_static(tree.always, o, d, a,
                                   _sphere_state_init(o))
@@ -524,13 +437,11 @@ def _closest_sphere_clustered(tree: _CullTree, o, d, mask, counter=None):
     state = _tree_sweep(
         tree.root, o, inv, state,
         vote=lambda st: mask, t_cap=lambda st: st[0],
-        leaf_fn=lambda prims, st: _sweep_spheres_static(prims, o, d, a, st),
-        counter=counter)
+        leaf_fn=lambda prims, st: _sweep_spheres_static(prims, o, d, a, st))
     return _sphere_state_finish(o, d, state)
 
 
-def _shadow_clustered(tree: _CullTree, o, d, t_max, lam, mask,
-                      counter=None):
+def _shadow_clustered(tree: _CullTree, o, d, t_max, lam, mask):
     a = s.vdot(d, d)
     atten = _shadow_sweep_static(tree.always, o, d, t_max, lam, a,
                                  jnp.ones_like(o[0]))
@@ -542,15 +453,13 @@ def _shadow_clustered(tree: _CullTree, o, d, t_max, lam, mask,
         tree.root, o, inv, atten,
         vote=lambda at: mask & (at > 0.0), t_cap=lambda at: t_max,
         leaf_fn=lambda prims, at: _shadow_sweep_static(prims, o, d, t_max,
-                                                       lam, a, at),
-        counter=counter)
+                                                       lam, a, at))
 
 
 def _closest_sphere_dyn(sph_ref, S, o, d):
-    """fori_loop winner sweep over an SMEM sphere table (S, 8) — used above
-    the static-unroll budget, where baking every sphere into the
-    instruction stream would explode compile time (measured: 257 unrolled
-    spheres -> 25s-6min Mosaic compile; this mode -> seconds)."""
+    """fori_loop winner sweep over a sphere table (S, 8) in device memory
+    — used above the static-unroll budget, where baking every sphere into
+    the instruction stream would make compile time grow with the count."""
     a = s.vdot(d, d)
     inv_a = 1.0 / a
 
@@ -585,7 +494,7 @@ def _closest_sphere_dyn(sph_ref, S, o, d):
 
 
 def _shadow_dyn(sph_ref, S, o, d, t_max, lam):
-    """fori_loop shadow sweep over the SMEM sphere table. Material types are
+    """fori_loop shadow sweep over the sphere table. Material types are
     runtime scalars here, so both the diffuse and dielectric factors are
     computed and selected (the static mode folds this away)."""
     a = s.vdot(d, d)
@@ -705,8 +614,7 @@ def _tri_shadow_clustered(tree: _CullTree, o, d, t_max, mask):
     if tree.root is None:
         return occ
     inv = tuple(1.0 / d[c] for c in range(3))
-    # the cond carry is an i32 mask, not bool: Mosaic rejects i1 vector
-    # carries (see the sphere sweeps' _mask_i32 convention)
+    # the cond carry is an i32 mask, not bool (the _mask_i32 convention)
     occ_i = _tree_sweep(
         tree.root, o, inv, _mask_i32(occ),
         vote=lambda oc: mask & (oc == 0), t_cap=lambda oc: t_max,
@@ -716,7 +624,7 @@ def _tri_shadow_clustered(tree: _CullTree, o, d, t_max, mask):
 
 
 def _closest_tri_dyn(tri_ref, T, o, d):
-    """fori_loop MT winner sweep over an SMEM triangle table (T, 16):
+    """fori_loop MT winner sweep over a triangle table (T, 16):
     ax,ay,az, e1x,e1y,e1z, e2x,e2y,e2z, nx,ny,nz, mat, 0,0,0."""
     def body(ti, carry):
         best_t, bnx, bny, bnz, best_mat = carry
@@ -846,183 +754,11 @@ def _material_lookup_static(materials, mat_id):
     return (cr, cg, cb_), rough, ior, is_diffuse, is_metal
 
 
-def _schlick_c(cos_t, f0):
-    """Schlick Fresnel, component form; f0 vec3 tuple, cos (R,128)."""
-    c = jnp.clip(jnp.abs(cos_t), 0.0, 1.0)
-    m = 1.0 - c
-    w = m * m * m * m * m
-    return tuple(f0[i] + (1.0 - f0[i]) * w for i in range(3))
-
-
-def _scatter_metal_c(wo, normal, f0, alpha, u2a, u2b):
-    """GGX conductor scatter (material type 2; see scene.Material.metal).
-    Smooth: mirror + Schlick F. Rough: VNDF sample, tp = F * G2/G1.
-    Returns (wi, tp (vec3), valid)."""
-    cos_t = s.vdot(wo, normal)
-    wi_sm = s.reflect_c(wo, normal)
-    tp_sm = _schlick_c(cos_t, f0)
-    valid_sm = s.vdot(wi_sm, normal) * cos_t > 0.0
-
-    T = s.build_tangent_frame_c(normal)
-    B = s.vcross(normal, T)
-    wo_l = s.to_local_c(wo, normal, T, B)
-    wm = s.tr_sample_wm_c(wo_l, u2a, u2b, alpha)
-    wi_l = s.reflect_c(wo_l, wm)
-    valid_r = wo_l[2] * wi_l[2] > 0.0
-    F = _schlick_c(s.vdot(wo_l, wm), f0)
-    G2 = s.tr_g_c(wo_l[2], wi_l[2], alpha)
-    G1 = s.tr_g1_c(wo_l[2], alpha)
-    w = G2 / jnp.maximum(G1, 1e-10)
-    tp_r = s.vscale(F, w)
-    wi_rough = s.to_world_c(wi_l, normal, T, B)
-
-    smooth = alpha < 1e-3
-    wi = s.vwhere(smooth, wi_sm, wi_rough)
-    tp = s.vwhere(smooth, tp_sm, tp_r)
-    valid = (smooth & valid_sm) | (~smooth & valid_r)
-    return wi, tp, valid
-
-
-def _scatter_dielectric_c(wo, normal, eta, alpha, u2a, u2b, u_choice, camera_pdf):
-    """Component-form mirror of tpurt.integrate._scatter_dielectric
-    (ref: mega_kernel.wgsl:914-973 camera, :795-852 photon).
-
-    camera_pdf: True/False selects the camera path's VNDF pdf vs the photon
-    path's Lambda+1 approximation statically; a per-lane MASK computes both
-    pdf variants (the only terms that differ) and selects — the regenerative
-    kernel uses this so mixed camera/photon lanes share one scatter pass."""
-    # --- effectively smooth ---
-    cos_t = s.vdot(wo, normal)
-    R_s = fr_dielectric(jnp.abs(cos_t), eta)
-    reflect_s = u_choice < R_s
-    wi_refl_s = s.reflect_c(wo, normal)
-    wi_refr_s, refr_ok = s.refract_c(wo, normal, eta)
-    etap_s = jnp.where(cos_t < 0.0, 1.0 / eta, eta)
-    tp_refr_s = 1.0 / (etap_s * etap_s)
-    wi_smooth = s.vwhere(reflect_s, wi_refl_s, wi_refr_s)
-    tp_smooth = jnp.where(reflect_s, 1.0, tp_refr_s)
-    off_smooth = jnp.where(reflect_s, EPS, -EPS)
-    valid_smooth = reflect_s | refr_ok
-
-    # --- rough GGX ---
-    T = s.build_tangent_frame_c(normal)
-    B = s.vcross(normal, T)
-    wo_l = s.to_local_c(wo, normal, T, B)
-    wm = s.tr_sample_wm_c(wo_l, u2a, u2b, alpha)
-    dot_wowm = jnp.abs(s.vdot(wo_l, wm))
-    R = fr_dielectric(dot_wowm, eta)
-    Tns = 1.0 - R
-    choose_reflect = u_choice < R / jnp.maximum(R + Tns, 1e-10)
-
-    D = s.tr_d_c(wm[2], alpha)
-
-    wi_l_refl = s.reflect_c(wo_l, wm)
-    refl_ok = wo_l[2] * wi_l_refl[2] > 0.0
-    G_r = s.tr_g_c(wo_l[2], wi_l_refl[2], alpha)
-    ct_i_r = jnp.abs(wi_l_refl[2])
-    ct_o = jnp.abs(wo_l[2])
-    bsdf_r = D * G_r * R / jnp.maximum(4.0 * ct_i_r * ct_o, 1e-10)
-    static_pdf = isinstance(camera_pdf, bool)
-    if (not static_pdf) or camera_pdf:
-        G1 = s.tr_g1_c(wo_l[2], alpha)
-        pdf_wm = (G1 / jnp.maximum(ct_o, 1e-10)) * D * dot_wowm
-        pdf_r_cam = jnp.maximum(pdf_wm / jnp.maximum(4.0 * dot_wowm, 1e-10),
-                                1e-10) * (R / jnp.maximum(R + Tns, 1e-10))
-    if (not static_pdf) or not camera_pdf:
-        pdf_r_ph = s.tr_lambda_c(wo_l[2], alpha) + 1.0
-    if static_pdf:
-        pdf_r = pdf_r_cam if camera_pdf else pdf_r_ph
-    else:
-        pdf_r = jnp.where(camera_pdf, pdf_r_cam, pdf_r_ph)
-    tp_r = bsdf_r * ct_i_r / jnp.maximum(pdf_r, 1e-10)
-
-    wi_l_refr, refr_l_ok = s.refract_c(wo_l, wm, eta)
-    trans_ok = refr_l_ok & ~(wo_l[2] * wi_l_refr[2] > 0.0)
-    G_t = s.tr_g_c(wo_l[2], wi_l_refr[2], alpha)
-    ct_i_t = jnp.abs(wi_l_refr[2])
-    denom = s.vdot(wi_l_refr, wm) + s.vdot(wo_l, wm) / eta
-    bsdf_t = Tns * D * G_t * jnp.abs(
-        s.vdot(wi_l_refr, wm) * s.vdot(wo_l, wm)
-        / jnp.maximum(ct_i_t * ct_o * denom * denom, 1e-10)
-    )
-    if (not static_pdf) or camera_pdf:
-        dwm_dwi = jnp.abs(s.vdot(wi_l_refr, wm)) / jnp.maximum(denom * denom, 1e-10)
-        G1 = s.tr_g1_c(wo_l[2], alpha)
-        pdf_t_cam = jnp.maximum(
-            (G1 / jnp.maximum(ct_o, 1e-10)) * D * dot_wowm * dwm_dwi
-            * (Tns / jnp.maximum(R + Tns, 1e-10)),
-            1e-10,
-        )
-    if (not static_pdf) or not camera_pdf:
-        pdf_t_ph = s.tr_lambda_c(wo_l[2], alpha) + 1.0
-    if static_pdf:
-        pdf_t = pdf_t_cam if camera_pdf else pdf_t_ph
-    else:
-        pdf_t = jnp.where(camera_pdf, pdf_t_cam, pdf_t_ph)
-    etap_t = jnp.where(wo_l[2] < 0.0, 1.0 / eta, eta)
-    tp_t = bsdf_t * ct_i_t / jnp.maximum(pdf_t, 1e-10) / (etap_t * etap_t)
-
-    wi_l = s.vwhere(choose_reflect, wi_l_refl, wi_l_refr)
-    wi_rough = s.to_world_c(wi_l, normal, T, B)
-    tp_rough = jnp.where(choose_reflect, tp_r, tp_t)
-    off_rough = jnp.where(choose_reflect, EPS, -EPS)
-    # boolean algebra instead of select: Mosaic has no i1-vector select
-    valid_rough = (choose_reflect & refl_ok) | (~choose_reflect & trans_ok)
-
-    smooth = alpha < 1e-3
-    wi = s.vwhere(smooth, wi_smooth, wi_rough)
-    tp_mult = jnp.where(smooth, tp_smooth, tp_rough)
-    offset = jnp.where(smooth, off_smooth, off_rough)
-    valid = (smooth & valid_smooth) | (~smooth & valid_rough)
-    return wi, tp_mult, offset, valid
-
-
-def _evaluate_bsdf_c(wo, wi, n, color, rough, ior_eta, is_diff, is_metal):
-    """Photon-gather BSDF (wgsl :725-743): Oren-Nayar diffuse or
-    GGX-reflection-only dielectric/metal. ior_eta is the pre-dispersed eta."""
-    f_diff = s.oren_nayar_c(wo, wi, n, color, rough)
-    ndotv = s.vdot(n, wo)
-    ndotl = s.vdot(n, wi)
-    refl = ndotv * ndotl > 0.0
-    alpha = jnp.sqrt(rough)
-    wm = s.vnormalize(s.vadd(wi, wo), eps=1e-30)
-    R = fr_dielectric(s.vdot(wo, wm), ior_eta)
-    T = s.build_tangent_frame_c(n)
-    B = s.vcross(n, T)
-    wo_l = s.to_local_c(wo, n, T, B)
-    wi_l = s.to_local_c(wi, n, T, B)
-    wm_l = s.to_local_c(wm, n, T, B)
-    D = s.tr_d_c(wm_l[2], alpha)
-    G = s.tr_g_c(wo_l[2], wi_l[2], alpha)
-    denom = jnp.maximum(4.0 * jnp.abs(wi_l[2]) * jnp.abs(wo_l[2]), 1e-10)
-    spec = jnp.where(refl, D * G * R / denom, 0.0)
-    # metal: same lobe, Schlick RGB Fresnel (color = F0)
-    F_m = _schlick_c(s.vdot(wo, wm), color)
-    dg = jnp.where(refl, D * G / denom, 0.0)
-    f_metal = s.vscale(F_m, dg)
-    f_spec = s.vwhere(is_metal, f_metal, (spec, spec, spec))
-    return s.vwhere(is_diff, f_diff, f_spec)
-
-
-def _diffuse_scatter_c(wo, n, color, rough, u2a, u2b):
-    """Cosine scatter + Oren-Nayar throughput (wgsl :906-912)."""
-    rn = s.unit_vec_from_u_c(u2a, u2b)
-    wi_d = s.vnormalize(s.vadd(n, rn), eps=1e-30)
-    cosw = jnp.maximum(s.vdot(n, wi_d), 1e-10)
-    pdf_d = cosw * jnp.float32(INV_PI)
-    f_diff = s.oren_nayar_c(s.vnormalize(wo, eps=1e-30), wi_d, n, color, rough)
-    tpm_d = s.vscale(f_diff, cosw / jnp.maximum(pdf_d, 1e-10))
-    return wi_d, tpm_d
-
-
 def nee_direct_c(LIGHTS, loc, n, lam, rng, shadow, shadow_mask_fn, emv_fn,
                  z3, mode="all"):
-    """THE NEE light loop (wgsl :568-615) shared by every fused kernel body
-    (tile-sync camera, regen interleaved, wavefront sweep, wavefront fused
-    — the photon walk has no NEE). The bodies differ only in the shadow
-    liveness mask and the emission source, injected as closures so each
-    caller's ops are emitted exactly where its old inline copy emitted
-    them (byte-identical jaxprs were asserted when this was extracted):
+    """THE NEE light loop (wgsl :568-615) of the fused kernel body (the
+    photon walk has no NEE). The shadow liveness mask and the emission
+    source are injected as closures:
 
       shadow_mask_fn() -> mask plane, re-evaluated per light like the old
         inline `active & found & is_diffuse` chains;
@@ -1134,8 +870,7 @@ def _nee_direct_power_c(LIGHTS, loc, n, lam, rng, shadow, shadow_mask_fn,
                                    + lnorm_sel[1] * ldir[1]
                                    + lnorm_sel[2] * ldir[2]))
     live = (dist >= EPS) & (ndotl > 0.0)
-    # boolean algebra (Mosaic has no i1-vector select): area lights also
-    # require a front-facing sample point and a positive half-width
+    # area lights also require a front-facing sample point and a positive half-width
     live = live & (~is_area | ((cos_light > 0.0) & (hw_sel > 0.0)))
     inv_pdf = jnp.where(is_area,
                         jnp.maximum(4.0 * hw_sel * hw_sel, 1e-10),
@@ -1153,13 +888,11 @@ def scatter_rr_c(cfg, wo, n, loc, color, rough, is_diffuse, is_metal, tp,
                  rr_thresh_fn, strata_fn=None, post_dielectric=None,
                  rr_scale_fn=None):
     """THE scatter-select + Russian-roulette block (wgsl :906-979 camera,
-    :782-853 photon) shared by all five fused kernel bodies. Per-site
-    variation is injected, each closure emitting its ops exactly where
-    the old inline copy emitted them (byte-identical jaxprs were asserted
-    when this was extracted):
+    :782-853 photon) of the fused kernel body. Per-site variation is
+    injected as closures:
 
       eta_fn() -> dielectric eta plane (dispersion rule differs per phase;
-        the wavefront kernels compute cauchy here from lam);
+        camera and photon lanes disperse differently);
       camera_pdf: bool or per-lane plane (regen mixes phases per lane);
       rr_thresh_fn() -> RR threshold (scalar const, or the regen kernel's
         per-lane camera/photon select);
@@ -1181,14 +914,14 @@ def scatter_rr_c(cfg, wo, n, loc, color, rough, is_diffuse, is_metal, tp,
     if strata_fn is not None:
         u2a, u2b, u_choice = strata_fn(u2a, u2b, u_choice)
 
-    wi_d, tpm_d = _diffuse_scatter_c(wo, n, color, rough, u2a, u2b)
+    wi_d, tpm_d = diffuse_scatter_c(wo, n, color, rough, u2a, u2b)
     wi, tpm = wi_d, tpm_d
     off = jnp.full_like(u2a, EPS)
     scat_ok = jnp.ones_like(u2a, bool)
     alpha = jnp.sqrt(rough)
     extra = None
     if any_dielectric:
-        wi_s, tpm_s, off_s, valid_s = _scatter_dielectric_c(
+        wi_s, tpm_s, off_s, valid_s = scatter_dielectric_c(
             wo, n, eta_fn(), alpha, u2a, u2b, u_choice,
             camera_pdf=camera_pdf)
         is_diel = ~(is_diffuse | is_metal)
@@ -1199,7 +932,7 @@ def scatter_rr_c(cfg, wo, n, loc, color, rough, is_diffuse, is_metal, tp,
         if post_dielectric is not None:
             extra = post_dielectric(is_diel)
     if any_metal:
-        wi_m, tpm_m, valid_m = _scatter_metal_c(wo, n, color, alpha,
+        wi_m, tpm_m, valid_m = scatter_metal_c(wo, n, color, alpha,
                                                 u2a, u2b)
         wi = s.vwhere(is_metal, wi_m, wi)
         tpm = s.vwhere(is_metal, tpm_m, tpm)
@@ -1226,239 +959,24 @@ def scatter_rr_c(cfg, wo, n, loc, color, rough, is_diffuse, is_metal, tp,
     return wi, new_tp, new_o, scat_ok, rr_live, rng, extra
 
 
-
-
-def _use_tri_bvh(fscene: FrozenScene, cfg: RenderConfig) -> bool:
-    from tpurt.kernels.bvh_pallas import MAX_BVH_TRIS
-    return (cfg.pallas_bvh
-            and cfg.pallas_static_unroll
-            < len(fscene.triangles) <= MAX_BVH_TRIS
-            and not _use_tri_chunked(fscene, cfg))
-
-
-def _use_mxu_leaf(fscene: FrozenScene, cfg: RenderConfig) -> bool:
-    """cfg.pallas_mxu_leaf engages on the single-table triangle walk only
-    (regen kernel; chunked slabs would need a second slab stream)."""
-    return cfg.pallas_mxu_leaf and _use_tri_bvh(fscene, cfg)
-
-
-@functools.lru_cache(maxsize=4)
-def _gmat_build_cached(triangles, leaf: int, sah: bool):
-    from tpurt.kernels import bvh_pallas
-    tri_tab, _, _ = bvh_pallas.build_tri_bvh_tables(triangles, leaf, sah)
-    return jnp.asarray(bvh_pallas.build_tri_gmat(tri_tab, leaf))
-
-
-def _gmat_table(fscene: FrozenScene, cfg: RenderConfig):
-    """() or (G,) — the MXU leaf-test matrix (VMEM input; see
-    bvh_pallas.build_tri_gmat). Built from the SAME leaf-ordered table as
-    the walk's SMEM nodes, so `first` indexes both consistently."""
-    if not _use_mxu_leaf(fscene, cfg):
-        return ()
-    return (_gmat_build_cached(fscene.triangles, cfg.pallas_bvh_leaf,
-                               cfg.pallas_bvh_sah),)
-
-
-def _tri_chunk_engages(n_tris: int, cfg: RenderConfig) -> bool:
-    """Count-level chunk-engagement predicate — ONE definition shared by
-    the dispatch (_use_tri_chunked) and supports_scene, so the two can
-    never drift apart (the gap-band class of bug)."""
-    from tpurt.kernels.bvh_pallas import MAX_BVH_TRIS
-    thresh = cfg.pallas_bvh_chunk_threshold or MAX_BVH_TRIS
-    return (cfg.pallas_bvh and cfg.pallas_bvh_chunk > 0
-            and n_tris > max(thresh, cfg.pallas_static_unroll))
-
-
-def _sph_chunk_engages(n_tree: int, cfg: RenderConfig) -> bool:
-    """Count-level sphere chunk predicate (n_tree = TREE side of
-    split_huge_spheres); see _tri_chunk_engages."""
-    from tpurt.kernels.bvh_pallas import MAX_BVH_SPHERES
-    thresh = cfg.pallas_bvh_chunk_threshold or MAX_BVH_SPHERES
-    return (cfg.pallas_sphere_bvh and cfg.pallas_bvh_chunk > 0
-            and n_tree > max(thresh, 16))
-
-
-def _use_tri_chunked(fscene: FrozenScene, cfg: RenderConfig) -> bool:
-    """Chunked (any-size) mesh mode: beyond the single-SMEM-table budget
-    (or a test-lowered threshold), triangles stream HBM slab -> SMEM
-    scratch per voted chunk (bvh_pallas.build_chunked_tri_tables)."""
-    return _tri_chunk_engages(len(fscene.triangles), cfg)
-
-
-@functools.lru_cache(maxsize=4)
-def _chunk_build_cached(triangles, chunk: int, leaf: int, sah: bool,
-                        width: int = 0):
-    from tpurt.kernels import bvh_pallas
-    return bvh_pallas.build_chunked_tri_tables(triangles, chunk, leaf, sah,
-                                               width)
-
-
-@functools.lru_cache(maxsize=4)
-def _chunk_build_sph_cached(tree_sph, chunk: int, leaf: int, sah: bool,
-                            width: int = 0):
-    from tpurt.kernels import bvh_pallas
-    return bvh_pallas.build_chunked_sphere_tables(tree_sph, chunk, leaf,
-                                                  sah, width)
-
-
-def _chunk_tables(fscene: FrozenScene, cfg: RenderConfig):
-    """(slab_tensors, meta) for chunked modes — the HBM slab tensors the
-    kernel wrappers pass (([], None) when no chunking; ordinary scenes
-    keep their exact pre-chunking signatures). Order: triangle slab
-    first (if tri-chunked), then sphere slab (if sphere-chunked). The
-    packed TOP tables ride the ordinary tri_tab/sph_tab SMEM slots
-    (see _prim_tables). meta = {"tri": ..., "sph": ..., "rows": max
-    slab stride} — "rows" sizes the shared SMEM/VMEM scratch (the two
-    walks never overlap in time, so one scratch serves both kinds)."""
-    tabs, mt, ms = [], None, None
-    if _use_tri_chunked(fscene, cfg):
-        _, slabs, mt = _chunk_build_cached(
-            fscene.triangles, cfg.pallas_bvh_chunk, cfg.pallas_bvh_leaf,
-            cfg.pallas_bvh_sah, cfg.pallas_bvh_width)
-        tabs.append(jnp.asarray(slabs))
-    if _use_sph_chunked(fscene, cfg):
-        from tpurt.kernels.bvh_pallas import split_huge_spheres
-        _, tree_sph = split_huge_spheres(fscene.spheres)
-        _, slabs, ms = _chunk_build_sph_cached(
-            tree_sph, cfg.pallas_bvh_chunk, cfg.pallas_bvh_leaf,
-            cfg.pallas_bvh_sah, cfg.pallas_bvh_width)
-        tabs.append(jnp.asarray(slabs))
-    if not tabs:
-        return [], None
-    rows = max(m["rows_pc"] for m in (mt, ms) if m)
-    return tabs, {"tri": mt, "sph": ms, "rows": rows}
-
-
-def chunk_sort_boxes(fscene: FrozenScene, cfg: RenderConfig):
-    """(n_chunks, 6) f32 chunk AABBs (bmin|bmax, ordinal order) for the
-    wavefront's global ray reordering (cfg.wf_chunk_sort), or None when
-    no chunked mode engages.  Triangle chunks win when both kinds chunk
-    (they are the slab-sweep cost the reordering amortizes)."""
-    if _use_tri_chunked(fscene, cfg):
-        _, _, meta = _chunk_build_cached(
-            fscene.triangles, cfg.pallas_bvh_chunk, cfg.pallas_bvh_leaf,
-            cfg.pallas_bvh_sah, cfg.pallas_bvh_width)
-        return meta["boxes"]
-    if _use_sph_chunked(fscene, cfg):
-        from tpurt.kernels.bvh_pallas import split_huge_spheres
-        _, tree_sph = split_huge_spheres(fscene.spheres)
-        _, _, meta = _chunk_build_sph_cached(
-            tree_sph, cfg.pallas_bvh_chunk, cfg.pallas_bvh_leaf,
-            cfg.pallas_bvh_sah, cfg.pallas_bvh_width)
-        return meta["boxes"]
-    return None
-
-
-def chunk_scratch_shapes(meta):
-    """scratch_shapes entries for the chunk DMA ([] when chunking off —
-    ordinary scenes compile with untouched signatures). The staged route
-    (bvh_pallas.CHUNK_DMA_VIA_VMEM) adds a VMEM bounce buffer + 2nd sem."""
-    if not meta:
-        return []
-    from tpurt.kernels.bvh_pallas import CHUNK_DMA_VIA_VMEM
-    rows = meta["rows"]
-    shapes = [pltpu.SMEM((rows, 128), jnp.float32)]
-    if CHUNK_DMA_VIA_VMEM:
-        shapes.append(pltpu.VMEM((rows, 128), jnp.float32))
-    shapes.append(pltpu.SemaphoreType.DMA(()))
-    if CHUNK_DMA_VIA_VMEM:
-        shapes.append(pltpu.SemaphoreType.DMA(()))
-    # resident-slab tag (bvh_pallas._chunked_walk): which (kind, chunk) the
-    # SMEM scratch currently holds, so consecutive walks over the same
-    # chunk skip the HBM->SMEM DMA entirely. Kernel bodies must reset it
-    # via chunk_scratch_reset before the first walk of a tile.
-    shapes.append(pltpu.SMEM((1,), jnp.int32))
-    return shapes
-
-
-def chunk_scratch_reset(chunk):
-    """Invalidate the resident-slab tag at tile start (chunk = the
-    (slab_refs, scratch_refs) pair or None). MUST run before the first
-    chunked walk of every kernel invocation: the SMEM scratch is
-    uninitialized per tile, and a stale/garbage tag that happened to
-    match a valid (kind, chunk) id would skip the DMA that loads it."""
-    if chunk is not None:
-        chunk[1][-1][0] = jnp.int32(-1)
-
-
-def _use_sph_bvh(fscene: FrozenScene, cfg: RenderConfig) -> bool:
-    """Sphere dynamic-BVH mode: enough non-huge spheres that ordered
-    near-to-far descent has a tree to prune, within the SMEM table
-    budget (beyond it, chunked mode or XLA)."""
-    if not cfg.pallas_sphere_bvh:
-        return False
-    from tpurt.kernels.bvh_pallas import MAX_BVH_SPHERES, split_huge_spheres
-    return (16 < len(split_huge_spheres(fscene.spheres)[1])
-            <= MAX_BVH_SPHERES
-            and not _use_sph_chunked(fscene, cfg))
-
-
-def _use_sph_chunked(fscene: FrozenScene, cfg: RenderConfig) -> bool:
-    """Chunked sphere mode: sphere counts beyond the single-SMEM-table
-    budget stream HBM slabs like chunked meshes (same threshold
-    override for tests)."""
-    from tpurt.kernels.bvh_pallas import split_huge_spheres
-    return _sph_chunk_engages(len(split_huge_spheres(fscene.spheres)[1]),
-                              cfg)
-
-
 def _use_clusters(fscene: FrozenScene, cfg: RenderConfig) -> bool:
     return (cfg.pallas_cluster_size > 0
             and len(fscene.spheres) > 4 * cfg.pallas_cluster_size
-            and len(fscene.spheres) <= cfg.pallas_static_unroll
-            and not _use_sph_bvh(fscene, cfg))
+            and len(fscene.spheres) <= cfg.pallas_static_unroll)
 
 
 def _prim_tables(fscene: FrozenScene, cfg: RenderConfig):
-    """SMEM primitive tables, consumed only above the static-unroll budget.
-    spheres: (cx, cy, cz, r, mat, mtype, ior, 0); triangles: (a, e1, e2, n,
-    mat, pad3) — or, in BVH mode, the packed triangle+node table of
-    kernels/bvh_pallas.py. In ORDERED cluster mode the sphere slot carries
-    the cull tree's tiny node table instead (sphere data stays baked).
-    Shared by every Pallas kernel wrapper."""
-    if _use_sph_chunked(fscene, cfg):
-        from tpurt.kernels import bvh_pallas
-        _, tree_sph = bvh_pallas.split_huge_spheres(fscene.spheres)
-        top_tab, _, _ = _chunk_build_sph_cached(
-            tree_sph, cfg.pallas_bvh_chunk, cfg.pallas_bvh_leaf,
-            cfg.pallas_bvh_sah, cfg.pallas_bvh_width)
-        sph_tab = jnp.asarray(top_tab)  # coarse tree rides the sph slot
-    elif _use_sph_bvh(fscene, cfg):
-        from tpurt.kernels import bvh_pallas
-        _, tree_sph = bvh_pallas.split_huge_spheres(fscene.spheres)
-        sph_tab = jnp.asarray(bvh_pallas.pack_tables(
-            *bvh_pallas.build_sphere_bvh_tables(tree_sph,
-                                                cfg.pallas_bvh_leaf,
-                                                cfg.pallas_bvh_sah,
-                                                cfg.pallas_bvh_width),
-            leaf_size=cfg.pallas_bvh_leaf))
-    elif len(fscene.spheres) > cfg.pallas_static_unroll:
+    """Device-memory primitive tables, read only above the static-unroll
+    budget. spheres: (cx, cy, cz, r, mat, mtype, ior, 0); triangles: (a,
+    e1, e2, n, mat, pad3). A one-row zero table stands in otherwise."""
+    if len(fscene.spheres) > cfg.pallas_static_unroll:
         sph_tab = jnp.asarray(
             [[sp.c[0], sp.c[1], sp.c[2], sp.r,
               float(sp.mat), float(sp.mtype), sp.ior, 0.0]
              for sp in fscene.spheres], jnp.float32)
-    elif cfg.pallas_cluster_ordered and _use_clusters(fscene, cfg):
-        tree = _sphere_cull_tree(fscene.spheres, cfg.pallas_cluster_size)
-        if tree.root is not None:
-            sph_tab = jnp.asarray(_cull_tree_node_table(tree)[0])
-        else:
-            sph_tab = jnp.zeros((1, 8), jnp.float32)
     else:
         sph_tab = jnp.zeros((1, 8), jnp.float32)
-    if _use_tri_chunked(fscene, cfg):
-        top_tab, _, _ = _chunk_build_cached(
-            fscene.triangles, cfg.pallas_bvh_chunk, cfg.pallas_bvh_leaf,
-            cfg.pallas_bvh_sah, cfg.pallas_bvh_width)
-        tri_tab = jnp.asarray(top_tab)  # coarse tree rides the tri slot
-    elif _use_tri_bvh(fscene, cfg):
-        from tpurt.kernels import bvh_pallas
-        tri_tab = jnp.asarray(bvh_pallas.pack_tables(
-            *bvh_pallas.build_tri_bvh_tables(fscene.triangles,
-                                             cfg.pallas_bvh_leaf,
-                                             cfg.pallas_bvh_sah,
-                                             cfg.pallas_bvh_width),
-            leaf_size=cfg.pallas_bvh_leaf))
-    elif len(fscene.triangles) > cfg.pallas_static_unroll:
+    if len(fscene.triangles) > cfg.pallas_static_unroll:
         tri_tab = jnp.asarray(
             [list(tr.a) + list(tr.e1) + list(tr.e2) + list(tr.n)
              + [float(tr.mat), 0.0, 0.0, 0.0]
@@ -1468,103 +986,18 @@ def _prim_tables(fscene: FrozenScene, cfg: RenderConfig):
     return sph_tab, tri_tab
 
 
-def _make_scene_fns(fscene: FrozenScene, cfg: RenderConfig, sph_ref, tri_ref,
-                    chunk=None, stats_ref=None, mxu_g_ref=None):
-    """(intersect, shadow) closures over the frozen scene + SMEM tables,
-    picking clustered / static-unroll / dynamic-sweep mode per primitive
-    kind. Both take a lanes-relevance mask (the lanes whose result is
-    consumed), used only for tile-level culling votes — per-lane results
-    for masked-out lanes stay well-defined. `chunk` = (chunk_ref,
-    scratch_refs_tuple) for chunked mesh mode (chunk_scratch_shapes
-    order); only _use_tri_chunked scenes consume it. `stats_ref`
-    (cfg.count_walk_stats) = an SMEM scalar-cell ref the chunked walks
-    accumulate diagnostics into: cells 4/5 = closest-walk worklist length
-    / chunks swept, 6/7 = the shadow-walk pair (cells 0-3 belong to the
-    regen kernel's phase counters)."""
+def _make_scene_fns(fscene: FrozenScene, cfg: RenderConfig, sph_ref, tri_ref):
+    """(intersect, shadow) closures over the frozen scene + primitive
+    tables, picking clustered / static-unroll / table-sweep mode per
+    primitive kind. Both take a lanes-relevance mask (the lanes whose
+    result is consumed), used only for tile-level culling votes — per-lane
+    results for masked-out lanes stay well-defined."""
     SPH, TRIS = fscene.spheres, fscene.triangles
-    use_clusters = _use_clusters(fscene, cfg)
-    tri_chunked = _use_tri_chunked(fscene, cfg)
-    if _use_sph_chunked(fscene, cfg):
-        from tpurt.kernels import bvh_pallas
-        assert chunk is not None, "chunked sphere mode needs chunk refs"
-        chunk_refs, chunk_scratch = chunk
-        sph_slab = chunk_refs[1] if tri_chunked else chunk_refs[0]
-        ALWAYS, TREE_SPH = bvh_pallas.split_huge_spheres(SPH)
-        _, _, smeta = _chunk_build_sph_cached(
-            TREE_SPH, cfg.pallas_bvh_chunk, cfg.pallas_bvh_leaf,
-            cfg.pallas_bvh_sah, cfg.pallas_bvh_width)
-        SCC, SRPC, SNCH = (smeta["chunk_cap"], smeta["rows_pc"],
-                           smeta["n_chunks"])
-
-        def sph_hit(o, d, m):
-            a = s.vdot(d, d)
-            st = _sweep_spheres_static(ALWAYS, o, d, a,
-                                       _sphere_state_init(o))
-            top_nodes = bvh_pallas._PackedTable(sph_ref, 0)
-            st = bvh_pallas.closest_sphere_bvh_chunked(
-                top_nodes, sph_slab, chunk_scratch, o, d, a, m, st,
-                SCC, SRPC, SNCH, leaf_size=cfg.pallas_bvh_leaf,
-                prefetch=cfg.pallas_chunk_prefetch,
-                interleave=cfg.pallas_chunk_interleave,
-                stats=None if stats_ref is None else (stats_ref, 4),
-                width=cfg.pallas_bvh_width)
-            return _sphere_state_finish(o, d, st)
-
-        def sph_shadow(o, d, tm, lam_, m):
-            a = s.vdot(d, d)
-            atten = _shadow_sweep_static(ALWAYS, o, d, tm, lam_, a,
-                                         jnp.ones_like(o[0]))
-            top_nodes = bvh_pallas._PackedTable(sph_ref, 0)
-            return bvh_pallas.sphere_shadow_bvh_chunked(
-                top_nodes, sph_slab, chunk_scratch, o, d, tm, lam_, a,
-                m & (atten > 0.0), atten, SCC, SRPC, SNCH,
-                leaf_size=cfg.pallas_bvh_leaf,
-                prefetch=cfg.pallas_chunk_prefetch,
-                interleave=cfg.pallas_chunk_interleave,
-                stats=None if stats_ref is None else (stats_ref, 6),
-                width=cfg.pallas_bvh_width)
-    elif _use_sph_bvh(fscene, cfg):
-        from tpurt.kernels import bvh_pallas
-        ALWAYS, TREE_SPH = bvh_pallas.split_huge_spheres(SPH)
-
-        def sph_hit(o, d, m):
-            a = s.vdot(d, d)
-            st = _sweep_spheres_static(ALWAYS, o, d, a,
-                                       _sphere_state_init(o))
-            nodes, sphs_v = bvh_pallas.packed_views(sph_ref, len(TREE_SPH))
-            st = bvh_pallas.closest_sphere_bvh(
-                nodes, sphs_v, o, d, a, m, st,
-                leaf_size=cfg.pallas_bvh_leaf,
-                width=cfg.pallas_bvh_width)
-            return _sphere_state_finish(o, d, st)
-
-        def sph_shadow(o, d, tm, lam_, m):
-            a = s.vdot(d, d)
-            atten = _shadow_sweep_static(ALWAYS, o, d, tm, lam_, a,
-                                         jnp.ones_like(o[0]))
-            nodes, sphs_v = bvh_pallas.packed_views(sph_ref, len(TREE_SPH))
-            return bvh_pallas.sphere_shadow_bvh(
-                nodes, sphs_v, o, d, tm, lam_, a, m & (atten > 0.0), atten,
-                leaf_size=cfg.pallas_bvh_leaf,
-                width=cfg.pallas_bvh_width)
-    elif use_clusters:
+    if _use_clusters(fscene, cfg):
         CL = _sphere_cull_tree(SPH, cfg.pallas_cluster_size)
-        # branch-mix cells (cfg.count_walk_stats; VERDICT r4 item 4):
-        # 8/9 = closest cull-tree leaf conds visited/taken, 10/11 = the
-        # shadow-walk pair.  The ordered closest walk lives inside a
-        # while loop — its ops are in the roofline's `nested` bucket, so
-        # only the STRAIGHT-LINE _tree_sweep conds need the mix.
-        cnt_c = None if stats_ref is None else (stats_ref, 8)
-        cnt_s = None if stats_ref is None else (stats_ref, 10)
-        if cfg.pallas_cluster_ordered and CL.root is not None:
-            LEAVES = _cull_tree_node_table(CL)[1]
-            sph_hit = lambda o, d, m: _closest_sphere_clustered_ordered(
-                CL, LEAVES, sph_ref, o, d, m)
-        else:
-            sph_hit = lambda o, d, m: _closest_sphere_clustered(
-                CL, o, d, m, counter=cnt_c)
+        sph_hit = lambda o, d, m: _closest_sphere_clustered(CL, o, d, m)
         sph_shadow = lambda o, d, tm, lam_, m: _shadow_clustered(
-            CL, o, d, tm, lam_, m, counter=cnt_s)
+            CL, o, d, tm, lam_, m)
     elif len(SPH) > cfg.pallas_static_unroll:
         sph_hit = lambda o, d, m: _closest_sphere_dyn(sph_ref, len(SPH), o, d)
         sph_shadow = lambda o, d, tm, lam_, m: _shadow_dyn(
@@ -1578,618 +1011,26 @@ def _make_scene_fns(fscene: FrozenScene, cfg: RenderConfig, sph_ref, tri_ref,
     tri_clusters = (cfg.pallas_cluster_size > 0
                     and len(TRIS) > 4 * cfg.pallas_cluster_size
                     and len(TRIS) <= cfg.pallas_static_unroll)
-    if tri_chunked:
-        from tpurt.kernels import bvh_pallas
-        assert chunk is not None, "chunked mesh mode needs chunk refs"
-        chunk_refs, chunk_scratch = chunk
-        chunk_ref = chunk_refs[0]
-        _, _, meta = _chunk_build_cached(
-            fscene.triangles, cfg.pallas_bvh_chunk, cfg.pallas_bvh_leaf,
-            cfg.pallas_bvh_sah, cfg.pallas_bvh_width)
-        CC, RPC, NCH = (meta["chunk_cap"], meta["rows_pc"],
-                        meta["n_chunks"])
-
-        def tri_hit(o, d, m, t_clip=None):
-            top_nodes = bvh_pallas._PackedTable(tri_ref, 0)
-            res = bvh_pallas.closest_tri_bvh_chunked(
-                top_nodes, chunk_ref, chunk_scratch, o, d, m,
-                CC, RPC, NCH, leaf_size=cfg.pallas_bvh_leaf,
-                cluster_rows=cfg.pallas_bvh_rows,
-                prefetch=cfg.pallas_chunk_prefetch,
-                interleave=cfg.pallas_chunk_interleave,
-                stats=None if stats_ref is None else (stats_ref, 4),
-                t_clip=t_clip, width=cfg.pallas_bvh_width)
-            return _tri_state_finish(o, d, res)
-
-        def tri_occ(o, d, tm, m):
-            top_nodes = bvh_pallas._PackedTable(tri_ref, 0)
-            return bvh_pallas.tri_shadow_bvh_chunked(
-                top_nodes, chunk_ref, chunk_scratch, o, d, tm,
-                m, CC, RPC, NCH, leaf_size=cfg.pallas_bvh_leaf,
-                cluster_rows=cfg.pallas_bvh_rows,
-                prefetch=cfg.pallas_chunk_prefetch,
-                interleave=cfg.pallas_chunk_interleave,
-                stats=None if stats_ref is None else (stats_ref, 6),
-                width=cfg.pallas_bvh_width)
-    elif tri_clusters:
+    if tri_clusters:
         TCL = _tri_cull_tree(TRIS, cfg.pallas_cluster_size)
-        tri_hit = lambda o, d, m, t_clip=None: _closest_tri_clustered(
-            TCL, o, d, m)
+        tri_hit = lambda o, d, m: _closest_tri_clustered(TCL, o, d, m)
         tri_occ = lambda o, d, tm, m: _tri_shadow_clustered(TCL, o, d, tm, m)
-    elif _use_tri_bvh(fscene, cfg):
-        from tpurt.kernels import bvh_pallas
-
-        def tri_hit(o, d, m, t_clip=None):
-            nodes, tris_v = bvh_pallas.packed_views(tri_ref, len(TRIS))
-            best_t, best_n, best_mat = bvh_pallas.closest_tri_bvh(
-                nodes, tris_v, o, d, m, leaf_size=cfg.pallas_bvh_leaf,
-                cluster_rows=cfg.pallas_bvh_rows, t_clip=t_clip,
-                mxu_g_ref=mxu_g_ref, width=cfg.pallas_bvh_width)
-            return _tri_state_finish(o, d, (best_t, best_n, best_mat))
-
-        def tri_occ(o, d, tm, m):
-            nodes, tris_v = bvh_pallas.packed_views(tri_ref, len(TRIS))
-            return bvh_pallas.tri_shadow_bvh(
-                nodes, tris_v, o, d, tm, m, leaf_size=cfg.pallas_bvh_leaf,
-                cluster_rows=cfg.pallas_bvh_rows,
-                width=cfg.pallas_bvh_width)
     elif len(TRIS) > cfg.pallas_static_unroll:
-        tri_hit = lambda o, d, m, t_clip=None: _closest_tri_dyn(
-            tri_ref, len(TRIS), o, d)
+        tri_hit = lambda o, d, m: _closest_tri_dyn(tri_ref, len(TRIS), o, d)
         tri_occ = lambda o, d, tm, m: _tri_shadow_dyn(
             tri_ref, len(TRIS), o, d, tm)
     else:
-        tri_hit = lambda o, d, m, t_clip=None: _closest_tri_static(
-            TRIS, o, d)
+        tri_hit = lambda o, d, m: _closest_tri_static(TRIS, o, d)
         tri_occ = lambda o, d, tm, m: _tri_shadow_static(TRIS, o, d, tm)
 
     def intersect(o, d, m):
-        # spheres first (cheap static sweeps / small trees), then the
-        # triangle pass CLIPPED at the sphere-hit distance: ground hits
-        # bound nearly every bounce, so mesh nodes/chunks beyond them
-        # prune away before any sweep. Bit-safe — _combine_nearest takes
-        # the triangle only on strict t_tri < t_sph (see closest_tri_bvh).
-        # cfg.pallas_tri_clip=False restores the independent passes.
-        hs = sph_hit(o, d, m)
-        clip = hs[0] if cfg.pallas_tri_clip else None
-        return _combine_nearest(hs, tri_hit(o, d, m, clip))
+        return _combine_nearest(sph_hit(o, d, m), tri_hit(o, d, m))
 
     def shadow(o, d, tm, lam_, m):
         return jnp.where(tri_occ(o, d, tm, m), 0.0,
                          sph_shadow(o, d, tm, lam_, m))
 
     return intersect, shadow
-
-
-# ----- the kernel body -----
-
-def _make_kernel(fscene: FrozenScene, cfg: RenderConfig, depth: int,
-                 lanes: int):
-    R = lanes // 128
-    W, H = cfg.width, cfg.height
-    SPH = fscene.spheres
-    MATS = fscene.materials
-    LIGHTS = fscene.lights
-    TRIS = fscene.triangles
-    L = len(LIGHTS)
-    any_dielectric = any(m.mtype == 1 for m in MATS)
-    any_metal = any(m.mtype == 2 for m in MATS)
-    ANY_EM = any(m.mtype == 3 for m in MATS)
-
-    n_slabs = (int(_use_tri_chunked(fscene, cfg))
-               + int(_use_sph_chunked(fscene, cfg)))
-
-    def kernel(planes_ref, cam_ref, seed_ref, rad_ref, base_ref, sph_ref,
-               tri_ref, *rest):
-        # chunked modes add (slab inputs, scratch refs); the signature is
-        # conditional so ordinary scenes compile unchanged
-        if n_slabs:
-            out_ref, rays_ref = rest[n_slabs:n_slabs + 2]
-            chunk = (list(rest[:n_slabs]), tuple(rest[n_slabs + 2:]))
-        else:
-            (out_ref, rays_ref), chunk = rest, None
-        chunk_scratch_reset(chunk)
-        intersect, shadow = _make_scene_fns(fscene, cfg, sph_ref, tri_ref,
-                                            chunk=chunk)
-        # base_ref: global tile offset of this shard (0 single-chip; device
-        # slab start under shard_map) — keeps pixel ids / RNG streams global.
-        tile = pl.program_id(0)
-        gtile = base_ref[0, 0] + tile
-        row = jax.lax.broadcasted_iota(jnp.int32, (R, 128), 0)
-        col = jax.lax.broadcasted_iota(jnp.int32, (R, 128), 1)
-        if cfg.pallas_block_tiles:
-            # tile = (R x 128) image block: a far narrower frustum than a
-            # `lanes`-pixel row slab -> tile-level culling votes prune more
-            NBX = -(-W // 128)
-            px = (gtile % NBX) * 128 + col
-            py = (gtile // NBX) * R + row
-            valid_px = (px < W) & (py < H)  # padding lanes never trace
-            px = jnp.minimum(px, W - 1)
-            py = jnp.minimum(py, H - 1)
-        else:
-            idx = gtile * lanes + row * 128 + col
-            px = jnp.remainder(idx, W)
-            py = jnp.minimum(idx // W, H - 1)
-            valid_px = idx < W * H
-
-        # persistent planes: carry last frame's vispoints into the output
-        # block; the bounce loop masked-updates them in place (cheaper than
-        # 13 extra while_loop carries, which spill at useful tile sizes).
-        for ch in range(3, N_CHANNELS):
-            out_ref[ch] = planes_ref[ch]
-
-        rng = rngmod.seed_pixels(seed_ref[0, 0], px, py)
-        photon_radius = rad_ref[0, 0]
-
-        # --- camera ray (ref: camera.rs:21-53; draw order = integrate.py) ---
-        # cfg.qmc: spawn draws from the Owen-scrambled Sobol stream
-        # (seed_ref[0,2]=base seed, [0,3]=global sample index); the path
-        # PCG stream then starts at position 0 — same shift as the XLA
-        # backend, so cross-backend pairing holds (integrate.render_tile)
-        if cfg.qmc:
-            from tpurt.ops import qmc as qmcmod
-            src = qmcmod.spawn_stream(seed_ref[0, 2], seed_ref[0, 3],
-                                      px, py)
-        else:
-            src = rng
-        uj1, src = rngmod.rand_1f(src)
-        uj2, src = rngmod.rand_1f(src)
-        u = (px.astype(jnp.float32) + uj1) / jnp.float32(W)
-        v = (py.astype(jnp.float32) + uj2) / jnp.float32(H)
-        cam_o = (cam_ref[0, 0], cam_ref[0, 1], cam_ref[0, 2])
-        cam_h = (cam_ref[1, 0], cam_ref[1, 1], cam_ref[1, 2])
-        cam_v = (cam_ref[2, 0], cam_ref[2, 1], cam_ref[2, 2])
-        cam_ll = (cam_ref[3, 0], cam_ref[3, 1], cam_ref[3, 2])
-        if cfg.motion_blur:
-            cam_do = (cam_ref[4, 0], cam_ref[4, 1], cam_ref[4, 2])
-            cam_dh = (cam_ref[5, 0], cam_ref[5, 1], cam_ref[5, 2])
-            cam_dv = (cam_ref[6, 0], cam_ref[6, 1], cam_ref[6, 2])
-            cam_dll = (cam_ref[7, 0], cam_ref[7, 1], cam_ref[7, 2])
-            ut, src = rngmod.rand_1f(src)
-            ch = tuple(cam_h[c] + ut * cam_dh[c] for c in range(3))
-            cv = tuple(cam_v[c] + ut * cam_dv[c] for c in range(3))
-            co = tuple(cam_o[c] + ut * cam_do[c] for c in range(3))
-            d0 = tuple(cam_ll[c] + ut * cam_dll[c]
-                       + u * ch[c] + v * cv[c] - co[c] for c in range(3))
-            o0 = co
-        else:
-            ch, cv = cam_h, cam_v
-            d0 = tuple(
-                cam_ll[c] + u * cam_h[c] + v * cam_v[c] - cam_o[c] for c in range(3)
-            )
-            o0 = s.vbroadcast(cam_o, u)
-        if cfg.aperture > 0.0:
-            from tpurt.camera import lens_perturb_c
-            o0, d0, src = lens_perturb_c(cfg.aperture, cfg.focus_dist,
-                                         src, o0, d0, ch, cv,
-                                         rngmod.rand_1f)
-
-        # --- one (hero) wavelength per sample (wgsl :995) ---
-        u_lam, src = rngmod.rand_1f(src)
-        if not cfg.qmc:
-            rng = src
-        lam = jnp.float32(VISIBLE_MIN) + u_lam * jnp.float32(VISIBLE_RANGE)
-
-        # --- per-frame spectral precomputes (lambda-invariant per path) ---
-        lam_um = lam * jnp.float32(1e-3)
-        cauchy_add = jnp.float32(DISPERSION_B) / (lam_um * lam_um)
-
-        # Per-light emission spectra (the reference recomputes these per
-        # bounce, wgsl :574-578; they only depend on lambda, so hoist).
-        # C_HERO > 1: average C rotated wavelengths (hero sampling); the
-        # hero-only share is kept for post-collapse lanes.
-        C_HERO = max(1, int(cfg.hero_wavelengths))
-        track_collapse = (C_HERO > 1 and cfg.dispersion_in_camera_path
-                          and any_dielectric)
-        if C_HERO == 1 or track_collapse:
-            # the single-lambda emission: the C=1 estimator, and the
-            # post-collapse hero emission at FULL weight (the dispersive
-            # dirac continuation is hero-only; no 1/C)
-            flat = _single_lambda_em_c(LIGHTS, lam)
-            hero_rgb = [tuple(flat[3 * li + c] for c in range(3))
-                        for li in range(L)]
-        if C_HERO > 1:
-            delta = VISIBLE_RANGE / C_HERO
-            light_rgb = [
-                s.hero_em_lookup_c(
-                    hero_emission_table(lt.color, lt.intensity, lt.temp,
-                                        C_HERO), delta, lam)
-                for lt in LIGHTS]
-        else:
-            light_rgb = hero_rgb
-
-        # Environment emission (cfg.sky_intensity > 0): hoisted like the
-        # light emissions; the direction tint is applied at miss time.
-        SKY_ON = float(cfg.sky_intensity) > 0.0
-        if SKY_ON:
-            if C_HERO == 1 or track_collapse:
-                sky_hero = _sky_em_c(cfg, lam)
-            if C_HERO > 1:
-                sky_rgb = s.hero_em_lookup_c(
-                    hero_emission_table((1.0, 1.0, 1.0), cfg.sky_intensity,
-                                        cfg.sky_temp, C_HERO), delta, lam)
-            else:
-                sky_rgb = sky_hero
-
-        # type-3 emissive materials: the lambda-only emission base
-        # (intensity lives in the material color; see Material.emissive)
-        if ANY_EM:
-            if C_HERO > 1:
-                emB_avg = s.hero_em_lookup_c(
-                    hero_emission_table((1.0, 1.0, 1.0), 1.0, 0.0, C_HERO),
-                    delta, lam)
-            else:
-                emB_avg = _flat_em_c(lam)
-            emB_flat = _flat_em_c(lam) if track_collapse else None
-
-        zero = jnp.zeros_like(u)
-        z3 = (zero, zero, zero)
-
-        # =========== camera path (wgsl :865-982 / integrate.py) ===========
-        st = {
-            "b": jnp.int32(0), "anylive": jnp.int32(1),
-            "o": o0, "d": d0, "tp": (zero + 1.0,) * 3, "rad": z3,
-            "active": _mask_i32(valid_px), "rng": rng,
-            "vp_stored": jnp.zeros_like(u, jnp.int32),
-            "rays": jnp.float32(0.0),
-        }
-        if track_collapse:
-            st["coll"] = jnp.zeros_like(u, jnp.int32)
-
-        def cam_cond(st):
-            return (st["b"] < depth) & (st["anylive"] > 0)
-
-        def cam_body(st):
-            o, d, tp, rad = st["o"], st["d"], st["tp"], st["rad"]
-            active, rng = st["active"] > 0, st["rng"]
-            rays = st["rays"]
-            if cfg.count_rays:
-                rays = rays + jnp.sum(_mask_f32(active))
-
-            t, loc, n, mat = intersect(o, d, active)
-            found = t < _HIT
-
-            # environment emission on miss (black sky otherwise, :617-620)
-            if SKY_ON:
-                em = (s.vwhere(st["coll"] > 0, sky_hero, sky_rgb)
-                      if track_collapse else sky_rgb)
-                tint = _sky_tint_c(cfg, d)
-                miss = active & ~found
-                rad = tuple(jnp.where(miss, rad[c] + tp[c] * em[c] * tint[c],
-                                      rad[c]) for c in range(3))
-
-            color, rough, ior, is_diffuse, is_metal = \
-                _material_lookup_static(MATS, mat)
-            wo = s.vneg(d)
-
-            # type-3 emitter hit: add emission, lane terminates below
-            if ANY_EM:
-                is_em = _is_emissive_static(MATS, mat)
-                emb = (s.vwhere(st["coll"] > 0, emB_flat, emB_avg)
-                       if track_collapse else emB_avg)
-                hit_em = active & found & is_em
-                rad = tuple(jnp.where(hit_em,
-                                      rad[c] + tp[c] * color[c] * emb[c],
-                                      rad[c]) for c in range(3))
-
-            # vispoint store at first diffuse hit (wgsl :893-900):
-            # masked in-place update of the persistent output planes.
-            store = active & found & is_diffuse & ~(st["vp_stored"] > 0)
-            for k_, val in ((_VPOS, loc), (_VNORM, n), (_VWO, wo), (_VTP, tp)):
-                out_ref[k_] = jnp.where(store, val[0], out_ref[k_])
-                out_ref[k_ + 1] = jnp.where(store, val[1], out_ref[k_ + 1])
-                out_ref[k_ + 2] = jnp.where(store, val[2], out_ref[k_ + 2])
-            out_ref[_VMAT] = jnp.where(store, mat.astype(jnp.float32),
-                                       out_ref[_VMAT])
-            vp_stored = jnp.maximum(st["vp_stored"], _mask_i32(store))
-
-            # NEE over all lights (wgsl :568-615); light type is static.
-            if track_collapse:
-                def emv_fn(li):
-                    return s.vwhere(st["coll"] > 0, hero_rgb[li],
-                                    light_rgb[li])
-            else:
-                def emv_fn(li):
-                    return light_rgb[li]
-            direct, rng = nee_direct_c(
-                LIGHTS, loc, n, lam, rng, shadow,
-                lambda: active & found & is_diffuse, emv_fn, z3,
-                mode=cfg.light_sample)
-
-            lane_d = active & found & is_diffuse
-            nee = s.vmul(s.vmul(tp, color), direct)
-            rad = s.vadd(rad, s.vwhere(lane_d, nee, z3))
-            if cfg.count_rays:
-                rays = rays + jnp.sum(_mask_f32(lane_d)) * (
-                    min(1, L) if cfg.light_sample != "all" else L)
-
-            # shared scatter draws (order = integrate.py); camera scatter
-            # cells are tile-shared per (sample, bounce) when strata are on
-            if cfg.photon_strata and cfg.camera_strata_bounce:
-                def strata_fn(a, b, c):
-                    return rngmod.apply_bounce_strata(
-                        seed_ref[0, 1], rngmod.CAMERA_STRATA_K, st["b"],
-                        rngmod.strata_counts(cfg)[1], a, b, c)
-            else:
-                strata_fn = None
-            if cfg.dispersion_in_camera_path:
-                def eta_fn():
-                    return ior + cauchy_add
-            else:
-                def eta_fn():
-                    return ior  # reference quirk (wgsl :915)
-            wi, new_tp, new_o, scat_ok, rr_live, rng, _ = scatter_rr_c(
-                cfg, wo, n, loc, color, rough, is_diffuse, is_metal, tp,
-                rng, any_dielectric=any_dielectric, any_metal=any_metal,
-                eta_fn=eta_fn, camera_pdf=True,
-                rr_thresh_fn=lambda: cfg.rr_threshold, strata_fn=strata_fn)
-
-            cont = active & found & scat_ok & rr_live
-            if ANY_EM:
-                cont = cont & ~is_em
-            cont_i = _mask_i32(cont)
-            out = {
-                "b": st["b"] + 1, "anylive": jnp.max(cont_i),
-                "o": s.vwhere(cont, new_o, o),
-                "d": s.vwhere(cont, wi, d),
-                "tp": s.vwhere(cont, new_tp, tp),
-                "rad": rad, "active": cont_i, "rng": rng,
-                "vp_stored": vp_stored,
-                "rays": rays,
-            }
-            if track_collapse:
-                # hero collapse on dispersive interaction (see mega_regen)
-                out["coll"] = jnp.maximum(st["coll"], _mask_i32(
-                    active & found & ~(is_diffuse | is_metal)))
-            return out
-
-        st = jax.lax.while_loop(cam_cond, cam_body, st)
-        rad = st["rad"]
-        # Independent per-photon streams (rng.photon_stream): draw
-        # positions depend only on (pixel, sample, k) — never on early
-        # exits, tile geometry, or other lanes.
-        rays_total = st["rays"]
-
-        # =========== photon pass (wgsl :745-861, :998-1015) ===========
-        contrib = z3
-        if cfg.enable_photons and L > 0:
-            vis_pos = (out_ref[_VPOS], out_ref[_VPOS + 1], out_ref[_VPOS + 2])
-            vp_ok = (jnp.sqrt(s.vdot(vis_pos, vis_pos)) > 0.001) & valid_px
-            vp_ok_i = _mask_i32(vp_ok)
-            inv_pi_r2 = 1.0 / jnp.maximum(
-                jnp.float32(np.pi) * photon_radius * photon_radius, 1e-10)
-
-            for k in range(cfg.k_photons):
-                rng = rngmod.photon_stream(seed_ref[0, 0], px, py, k)
-                lt = LIGHTS[k % L]
-
-                # point: cone toward origin (1f + 2f draws, wgsl :710-721)
-                uc, rng = rngmod.rand_1f(rng)
-                up1, rng = rngmod.rand_1f(rng)
-                _up2, rng = rngmod.rand_1f(rng)  # drawn, unused (ref parity)
-                ue1, rng = rngmod.rand_1f(rng)
-                ue2, rng = rngmod.rand_1f(rng)
-                uh1, rng = rngmod.rand_1f(rng)
-                uh2, rng = rngmod.rand_1f(rng)
-                if cfg.photon_strata:
-                    # tile-coherent emission cell per (sample, k)
-                    uc, up1, ue1, ue2, uh1, uh2 = \
-                        rngmod.apply_emission_strata(
-                            seed_ref[0, 1], rngmod.strata_k(cfg, k),
-                            *rngmod.strata_counts(cfg),
-                            uc, up1, ue1, ue2, uh1, uh2)
-
-                if lt.ltype == 0:
-                    ct = 1.0 - uc * np.float32(1.0 - PHOTON_CONE_COS)
-                    stn = jnp.sqrt(jnp.maximum(0.0, 1.0 - ct * ct))
-                    phi = jnp.float32(s.TWO_PI) * up1
-                    cphi, sphi = jnp.cos(phi), jnp.sin(phi)
-                    ph_d = tuple(
-                        stn * cphi * np.float32(lt.cone_t[c])
-                        + stn * sphi * np.float32(lt.cone_b[c])
-                        + ct * np.float32(lt.cone_axis[c]) for c in range(3))
-                    ph_o = s.vbroadcast(lt.pos, uc)
-                    cone_factor = (1.0 - PHOTON_CONE_COS) * 0.5
-                    ph_tp = s.vbroadcast(tuple(
-                        lt.color[c] * lt.intensity / cfg.k_photons * cone_factor
-                        for c in range(3)), uc)
-                else:
-                    su = (ue1 - 0.5) * np.float32(2.0 * lt.hw)
-                    sv = (ue2 - 0.5) * np.float32(2.0 * lt.hw)
-                    ph_o = tuple(
-                        np.float32(lt.pos[c] + lt.normal[c] * EPS)
-                        + su * np.float32(lt.tangent[c])
-                        + sv * np.float32(lt.bitangent[c]) for c in range(3))
-                    theta = jnp.float32(s.TWO_PI) * uh1
-                    r_ = jnp.sqrt(uh2)
-                    x_ = r_ * jnp.cos(theta)
-                    y_ = r_ * jnp.sin(theta)
-                    z_ = jnp.sqrt(jnp.maximum(0.0, 1.0 - r_ * r_))
-                    ph_d = tuple(
-                        x_ * np.float32(lt.tangent[c])
-                        + y_ * np.float32(lt.bitangent[c])
-                        + z_ * np.float32(lt.normal[c]) for c in range(3))
-                    ph_tp = s.vbroadcast(tuple(
-                        lt.color[c] * lt.intensity / cfg.k_photons
-                        for c in range(3)), uc)
-
-                pst = {
-                    "b": jnp.int32(0), "anylive": jnp.max(vp_ok_i),
-                    "o": ph_o, "d": ph_d, "tp": ph_tp,
-                    "active": vp_ok_i, "rng": rng,
-                    "contrib": z3, "rays": jnp.float32(0.0),
-                }
-
-                def ph_cond(pst):
-                    return (pst["b"] < cfg.max_photon_bounces) & (pst["anylive"] > 0)
-
-                def ph_body(pst):
-                    o, d, tp = pst["o"], pst["d"], pst["tp"]
-                    active, rng = pst["active"] > 0, pst["rng"]
-                    rays = pst["rays"]
-                    if cfg.count_rays:
-                        rays = rays + jnp.sum(_mask_f32(active))
-
-                    t, loc, n, mat = intersect(o, d, active)
-                    found = t < _HIT
-                    live = active & found
-
-                    # density estimation at this lane's vispoint (wgsl :774-780)
-                    # vispoints re-read from the output block each bounce:
-                    # keeps them out of the loop carry (register pressure).
-                    vpos = (out_ref[_VPOS], out_ref[_VPOS + 1], out_ref[_VPOS + 2])
-                    vnorm = (out_ref[_VNORM], out_ref[_VNORM + 1], out_ref[_VNORM + 2])
-                    vwo = (out_ref[_VWO], out_ref[_VWO + 1], out_ref[_VWO + 2])
-                    vtp = (out_ref[_VTP], out_ref[_VTP + 1], out_ref[_VTP + 2])
-                    vmat = out_ref[_VMAT].astype(jnp.int32)
-                    v_color, v_rough, v_ior, v_isdiff, v_ismetal = \
-                        _material_lookup_static(MATS, vmat)
-                    dvec = s.vsub(loc, vpos)
-                    dist = jnp.sqrt(jnp.maximum(s.vdot(dvec, dvec), 0.0))
-                    near = dist < photon_radius
-                    f = _evaluate_bsdf_c(vwo, s.vneg(d), vnorm,
-                                         v_color, v_rough, v_ior + cauchy_add,
-                                         v_isdiff, v_ismetal)
-                    kern = (1.0 - dist / photon_radius) * inv_pi_r2
-                    dens = s.vscale(s.vmul(s.vmul(vtp, f), tp), kern)
-                    c = s.vadd(pst["contrib"], s.vwhere(live & near, dens, z3))
-
-                    # scatter (wgsl :782-853)
-                    color, rough, ior, is_diffuse, is_metal = \
-                        _material_lookup_static(MATS, mat)
-                    wo = s.vneg(d)
-
-                    if cfg.photon_strata and cfg.photon_strata_bounce:
-                        # tile-shared (sample, k, bounce) scatter cell
-                        def strata_fn(a, b, c):
-                            return rngmod.apply_bounce_strata(
-                                seed_ref[0, 1], rngmod.strata_k(cfg, k),
-                                pst["b"], rngmod.strata_counts(cfg)[1],
-                                a, b, c)
-                    else:
-                        strata_fn = None
-                    wi, new_tp, new_o, scat_ok, rr_live, rng, _ = \
-                        scatter_rr_c(
-                            cfg, wo, n, loc, color, rough, is_diffuse,
-                            is_metal, tp, rng,
-                            any_dielectric=any_dielectric,
-                            any_metal=any_metal,
-                            # photons disperse (wgsl :797)
-                            eta_fn=lambda: ior + cauchy_add,
-                            camera_pdf=False,
-                            rr_thresh_fn=lambda: cfg.photon_rr_threshold,
-                            strata_fn=strata_fn,
-                            rr_scale_fn=None if cfg.photon_rr_scale == 1.0
-                            else (lambda: jnp.float32(cfg.photon_rr_scale)))
-
-                    cont = live & scat_ok & rr_live
-                    if ANY_EM:
-                        # type-3 emitters absorb photons
-                        cont = cont & ~_is_emissive_static(MATS, mat)
-                    cont_i = _mask_i32(cont)
-                    return {
-                        "b": pst["b"] + 1, "anylive": jnp.max(cont_i),
-                        "o": s.vwhere(cont, new_o, o),
-                        "d": s.vwhere(cont, wi, d),
-                        "tp": s.vwhere(cont, new_tp, tp),
-                        "active": cont_i, "rng": rng,
-                        "contrib": c, "rays": rays,
-                    }
-
-                pst = jax.lax.while_loop(ph_cond, ph_body, pst)
-                contrib = s.vadd(contrib, pst["contrib"])
-                rays_total = rays_total + pst["rays"]
-
-        # =========== accumulate (wgsl :1017-1021) ===========
-        total = s.vadd(rad, contrib)
-        if cfg.radiance_clamp > 0.0:
-            cl = jnp.float32(cfg.radiance_clamp)
-            total = tuple(jnp.minimum(t, cl) for t in total)
-        out_ref[0] = planes_ref[0] + total[0]
-        out_ref[1] = planes_ref[1] + total[1]
-        out_ref[2] = planes_ref[2] + total[2]
-        rays_ref[tile, 0] = rays_total  # full-array SMEM block; own row only
-
-    return kernel
-
-
-# ----- pallas_call wrapper -----
-
-@functools.partial(jax.jit,
-                   static_argnames=("fscene", "cfg", "depth", "interpret"))
-def megakernel_step(fscene: FrozenScene, cfg: RenderConfig, camera, planes,
-                    seed, photon_radius, depth: int, interpret: bool = False,
-                    tile_base=0, strata_seed=None, qmc_ctx=None):
-    """Advance every pixel by one progressive sample via the Pallas kernel.
-
-    planes: (16, TR, 128) f32 state (see N_CHANNELS layout); returns
-    (new_planes, rays_per_tile (n_tiles,)). tile_base is the global tile
-    offset of this planes shard (nonzero under shard_map pixel sharding).
-    strata_seed: the (possibly window-epoch) seed the emission stratum
-    hashes — defaults to `seed` (photon_strata_window == 1).
-    qmc_ctx: (base_seed, global_sample_index), required when cfg.qmc
-    (rides two extra seed_arr slots; non-qmc signatures are unchanged).
-    """
-    lanes = cfg.pallas_lanes
-    assert lanes % 128 == 0, "pallas_lanes must be a multiple of 128"
-    R = lanes // 128
-    TR = planes.shape[1]
-    assert TR % R == 0, (TR, R)
-    n_tiles = TR // R
-
-    if cfg.motion_blur:
-        from tpurt.camera import motion_rows
-        cam = motion_rows(camera)                 # (8, 3): basis + deltas
-    else:
-        cam = jnp.stack([camera.origin, camera.horizontal,
-                         camera.vertical, camera.lower_left])
-    if strata_seed is None:
-        strata_seed = seed
-    seed_vals = [jnp.asarray(seed, jnp.uint32),
-                 jnp.asarray(strata_seed, jnp.uint32)]
-    if cfg.qmc:
-        if qmc_ctx is None:
-            raise ValueError("cfg.qmc=True requires qmc_ctx="
-                             "(base_seed, global_sample_index)")
-        seed_vals += [jnp.asarray(qmc_ctx[0], jnp.uint32),
-                      jnp.asarray(qmc_ctx[1], jnp.int32).astype(jnp.uint32)]
-    seed_arr = jnp.stack(seed_vals).reshape(1, len(seed_vals))
-    rad_arr = jnp.asarray(photon_radius, jnp.float32).reshape(1, 1)
-    base_arr = jnp.asarray(tile_base, jnp.int32).reshape(1, 1)
-
-    sph_tab, tri_tab = _prim_tables(fscene, cfg)
-    chunk_tab, chunk_meta = _chunk_tables(fscene, cfg)
-
-    kernel = _make_kernel(fscene, cfg, depth, lanes)
-
-    new_planes, rays = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((N_CHANNELS, R, 128), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ] + [pl.BlockSpec(memory_space=pl.ANY)] * len(chunk_tab),
-        out_specs=[
-            pl.BlockSpec((N_CHANNELS, R, 128), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct(planes.shape, jnp.float32),
-            jax.ShapeDtypeStruct((n_tiles, 1), jnp.float32),
-        ],
-        scratch_shapes=chunk_scratch_shapes(chunk_meta),
-        input_output_aliases={0: 0},
-        interpret=interpret,
-    )(planes, cam, seed_arr, rad_arr, base_arr, sph_tab, tri_tab,
-      *chunk_tab)
-    return new_planes, rays[:, 0]
 
 
 # ----- RenderState <-> planes conversion (XLA side) -----
@@ -2251,95 +1092,3 @@ def state_to_planes(state, cfg: RenderConfig):
     cols.append(state.vis_mat.astype(jnp.float32))
     flat = pixels_to_planes_order(cfg, jnp.stack(cols))
     return flat.reshape(N_CHANNELS, TR, 128)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("fscene", "cfg", "depth", "interpret"))
-def _render_pallas_jit(fscene, cfg, camera, state, base_seed, spp, depth,
-                       interpret):
-    # spp is a TRACED fori_loop bound: one compile serves any sample count
-    # (the Mosaic kernel compile is the expensive part; don't repeat it).
-    from tpurt.render import _frame_seed
-
-    planes = state_to_planes(state, cfg)
-
-    def body(_, carry):
-        planes, it, radius, rays = carry
-        seed = _frame_seed(base_seed, it)
-        strata_seed = None
-        if cfg.photon_strata and cfg.photon_strata_window > 1:
-            from tpurt.ops.rng import strata_epoch
-            strata_seed = _frame_seed(base_seed, strata_epoch(cfg, it))
-        new_planes, tile_rays = megakernel_step(
-            fscene, cfg, camera, planes, seed, radius, depth,
-            interpret=interpret, strata_seed=strata_seed,
-            qmc_ctx=(base_seed, it) if cfg.qmc else None)
-        it_new = it + 1
-        from tpurt.render import sppm_radius_step
-        r_new = sppm_radius_step(cfg, it_new.astype(jnp.float32), radius)
-        return (new_planes, it_new, r_new, rays + jnp.sum(tile_rays))
-
-    planes, it, radius, rays = jax.lax.fori_loop(
-        0, spp, body,
-        (planes, state.iteration, state.photon_radius, state.rays))
-
-    P = planes.shape[1] * 128
-    flat = planes_pixel_order(cfg, planes.reshape(N_CHANNELS, P))
-    v3 = lambda a: jnp.stack([flat[a], flat[a + 1], flat[a + 2]], axis=-1)
-    return dataclasses.replace(
-        state,
-        rgb_sum=v3(0),
-        n_samples=state.n_samples + spp.astype(jnp.float32),
-        vis_pos=v3(3), vis_norm=v3(6), vis_wo=v3(9), vis_tp=v3(12),
-        vis_mat=flat[15].astype(jnp.int32),
-        iteration=it, photon_radius=radius, rays=rays,
-    )
-
-
-def xla_fallback(scene, cfg: RenderConfig, camera, state, base_seed,
-                 spp, depth: int | None = None):
-    """Out-of-budget fallback shared by the fused-kernel entry points:
-    the same progressive algorithm through the XLA integrator (any scene
-    size), honoring a preview depth override."""
-    from tpurt.render import _render_step_xla, _render_xla
-    if depth is None or depth == cfg.depth:
-        return _render_xla(scene, cfg, camera, state, base_seed, int(spp))
-    st = state
-    for _ in range(int(spp)):
-        st = _render_step_xla(scene, cfg, camera, st, base_seed, int(depth))
-    return st
-
-
-def render_pallas(scene, cfg: RenderConfig, camera, state, base_seed,
-                  spp: int, depth: int | None = None,
-                  interpret: bool | None = None):
-    """Run `spp` progressive samples with the tile planes resident on device.
-
-    The scene must be concrete (not traced): it is frozen into compile-time
-    constants. The (P, 3) <-> planes layout conversion is paid ONCE per
-    call — on TPU the narrow (P, 3) arrays live in a padded tiled layout, so
-    per-step transposes would cost ~100x the kernel itself (measured).
-
-    Scenes beyond the fused-kernel budgets run the SAME algorithm through
-    the XLA integrator instead (render()'s dispatch checks supports_scene
-    before coming here; direct callers get the identical fallback rather
-    than an SMEM-table blowup).
-    """
-    if not supports_scene(scene, cfg):
-        return xla_fallback(scene, cfg, camera, state, base_seed, spp, depth)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    fscene = freeze_scene(scene)
-    return _render_pallas_jit(fscene, cfg, camera, state,
-                              jnp.asarray(base_seed, jnp.uint32),
-                              jnp.asarray(spp, jnp.int32),
-                              cfg.depth if depth is None else depth,
-                              interpret)
-
-
-def render_step_pallas(scene, cfg: RenderConfig, camera, state, base_seed,
-                       depth: int, interpret: bool | None = None):
-    """Single progressive sample via the Pallas backend (pays the layout
-    conversion both ways; use render_pallas for multi-spp rendering)."""
-    return render_pallas(scene, cfg, camera, state, base_seed, 1, depth,
-                         interpret=interpret)

@@ -1,11 +1,10 @@
-"""Regenerative Pallas megakernel: per-lane sample regeneration with the
-full SPPM photon pass.
+"""Regenerative megakernel: per-lane sample regeneration with the full
+SPPM photon pass, compiled for the GPU through Pallas' Triton route.
 
-The tile-synchronized megakernel (tpurt.kernels.mega_pallas) runs one
-progressive sample per kernel call: every lane waits for the tile's longest
-camera path, then for the longest walk of each of the K photons — measured
-lane occupancy on the Cornell benchmark is ~30%. This kernel keeps each
-lane busy on ITS OWN work instead: a per-lane state machine
+A tile-synchronized kernel, running one progressive sample per call, makes
+every lane wait for the tile's longest camera path and then for the
+longest walk of each of the K photons. This kernel keeps each lane busy on
+ITS OWN work instead: a per-lane state machine
 
     camera path  ->  photon walk k=0..K-1  ->  finalize  ->  next sample
 
@@ -15,12 +14,18 @@ is already tracing its next task in iteration i+1 — no idle bubbles, ~100%
 occupancy for the whole spp batch, and zero host round-trips between
 samples.
 
-Results are mask-identical to the tile-synchronized kernel: every draw
-position is a pure function of (pixel, sample, phase, k) thanks to the
-per-photon streams (rng.photon_stream), the radius schedule is applied
-per-lane at sample transitions with the same float sequence, and vispoints
-live in the lane's own output channels (async-safe: no cross-lane reads).
-Tests assert exact ray-count equality against both other integrators.
+Every draw position is a pure function of (pixel, sample, phase, k) thanks
+to the per-photon streams (rng.photon_stream), the radius schedule is
+applied per-lane at sample transitions with the same float sequence, and
+vispoints live in the lane's own output channels (no cross-lane reads), so
+results match the XLA integrator: tests assert exact ray-count equality.
+
+One program is one tile of `cfg.pallas_lanes` pixels, (R, 128) planes with
+R = lanes / 128, run by lanes / 16 warps (two threads per lane). Whole-tile
+votes (the spawn conds, the loop exit) are max-reductions over the tile.
+The camera and the scalars live in small device arrays read by scalar
+loads; the primitive tables stay in device memory (L2-resident at these
+sizes).
 
 Physics, scene freezing, and primitive modes are shared with
 tpurt.kernels.mega_pallas (same reference citations apply).
@@ -35,26 +40,23 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from tpurt.config import RenderConfig
 from tpurt.kernels.mega_pallas import (
     EPS,
     _HIT,
     N_CHANNELS,
-    N_STAT_CELLS,
     _VMAT,
     _VNORM,
     _VPOS,
     _VTP,
     _VWO,
     FrozenScene,
-    _diffuse_scatter_c,
-    _evaluate_bsdf_c,
+    _any,
     _mask_f32,
     _mask_i32,
     _material_lookup_static,
-    _chunk_tables,
     _make_scene_fns,
     _single_lambda_em_c,
     _sky_em_c,
@@ -62,23 +64,29 @@ from tpurt.kernels.mega_pallas import (
     _flat_em_c,
     _is_emissive_static,
     _prim_tables,
-    chunk_scratch_shapes,
-    chunk_scratch_reset,
-    _scatter_dielectric_c,
-    _scatter_metal_c,
+    PHOTON_CONE_COS,
+    check_scene,
     freeze_scene,
     nee_direct_c,
     scatter_rr_c,
     planes_pixel_order,
+    pixels_to_planes_order,
     state_to_planes,
-    supports_scene,
 )
-from tpurt.kernels.mega_pallas import PHOTON_CONE_COS  # noqa: E402
 from tpurt.ops import rng as rngmod
 from tpurt.ops import soa as s
+from tpurt.ops.scatter_c import evaluate_bsdf_c
 from tpurt.ops.spectra import (DISPERSION_B, VISIBLE_MIN, VISIBLE_RANGE,
                                hero_emission_table)
 from tpurt.render import _frame_seed, sppm_radius_step
+from tpurt.runtime import pallas_interpret
+
+# Scalar arguments are small device arrays read by scalar loads, every
+# length a power of two (the Triton lowering requires it): the camera rows
+# (4, or 8 with motion blur) x 3 padded to _CAM_LEN f32; i32 [spp, starting
+# iteration, depth bound, first tile]; u32 [seed]; f32 [starting SPPM
+# radius, starting iteration].
+_CAM_LEN = 32
 
 
 def _make_regen_kernel(fscene: FrozenScene, cfg: RenderConfig, lanes: int,
@@ -123,38 +131,14 @@ def _make_regen_kernel(fscene: FrozenScene, cfg: RenderConfig, lanes: int,
     if ANY_EM and C_HERO > 1:
         EMB_TAB = hero_emission_table((1.0, 1.0, 1.0), 1.0, 0.0, C_HERO)
 
-    from tpurt.kernels.mega_pallas import (_use_mxu_leaf,
-                                           _use_sph_chunked,
-                                           _use_tri_chunked)
-    n_slabs = (int(_use_tri_chunked(fscene, cfg))
-               + int(_use_sph_chunked(fscene, cfg)))
-    use_mxu = _use_mxu_leaf(fscene, cfg)
-
-    def kernel(planes_ref, z_ref, cam_ref, seed_ref, spp_ref, rad_ref,
-               base_ref, sph_ref, tri_ref, *rest):
+    def kernel(planes_ref, cam_ref, ip_ref, seed_ref, fp_ref, sph_ref,
+               tri_ref, *rest):
         if budget_mode:
-            aux_ref = rest[0]
-            rest = rest[1:]
-        if use_mxu:
-            mxu_g_ref, rest = rest[0], rest[1:]
+            aux_ref, out_ref, rays_ref = rest
         else:
-            mxu_g_ref = None
-        if cfg.count_walk_stats:
-            # diagnostics scratch is always the LAST scratch arg
-            stats_ref, rest = rest[-1], rest[:-1]
-        else:
-            stats_ref = None
-        if n_slabs:
-            out_ref, rays_ref = rest[n_slabs:n_slabs + 2]
-            chunk = (list(rest[:n_slabs]), tuple(rest[n_slabs + 2:]))
-        else:
-            (out_ref, rays_ref), chunk = rest, None
-        chunk_scratch_reset(chunk)
-        if stats_ref is not None:
-            for i in range(N_STAT_CELLS):
-                stats_ref[i] = jnp.float32(0.0)
+            out_ref, rays_ref = rest
         tile = pl.program_id(0)
-        gtile = base_ref[0, 0] + tile
+        gtile = ip_ref[3] + tile
         row = jax.lax.broadcasted_iota(jnp.int32, (R, 128), 0)
         col = jax.lax.broadcasted_iota(jnp.int32, (R, 128), 1)
         if cfg.pallas_block_tiles:
@@ -169,50 +153,39 @@ def _make_regen_kernel(fscene: FrozenScene, cfg: RenderConfig, lanes: int,
             px = jnp.remainder(idx, W)
             py = jnp.minimum(idx // W, H - 1)
             valid_px = idx < W * H
-        base_seed = seed_ref[0, 0]
-        spp = spp_ref[0, 0]
-        it0_i = spp_ref[0, 1]   # starting iteration (progressive continuation)
-        # camera depth bound as a RUNTIME scalar (spp_ref[0, 2]): a depth-1
-        # preview frame shares the full kernel's compile instead of paying
-        # a second multi-minute Mosaic compile (the bound only feeds a
+        base_seed = seed_ref[0]
+        spp = ip_ref[0]
+        it0_i = ip_ref[1]   # starting iteration (progressive continuation)
+        # camera depth bound as a RUNTIME scalar: a depth-1 preview frame
+        # shares the full kernel's compile (the bound only feeds a
         # jnp.where, never the loop structure)
-        depth_i = spp_ref[0, 2]
-        r0 = rad_ref[0, 0]
+        depth_i = ip_ref[2]
+        r0 = fp_ref[0]
 
-        cam_o = (cam_ref[0, 0], cam_ref[0, 1], cam_ref[0, 2])
-        cam_h = (cam_ref[1, 0], cam_ref[1, 1], cam_ref[1, 2])
-        cam_v = (cam_ref[2, 0], cam_ref[2, 1], cam_ref[2, 2])
-        cam_ll = (cam_ref[3, 0], cam_ref[3, 1], cam_ref[3, 2])
+        def cam_row(r):
+            return tuple(cam_ref[3 * r + c] for c in range(3))
+
+        cam_o, cam_h, cam_v, cam_ll = (cam_row(r) for r in range(4))
         if cfg.motion_blur:
-            cam_do = (cam_ref[4, 0], cam_ref[4, 1], cam_ref[4, 2])
-            cam_dh = (cam_ref[5, 0], cam_ref[5, 1], cam_ref[5, 2])
-            cam_dv = (cam_ref[6, 0], cam_ref[6, 1], cam_ref[6, 2])
-            cam_dll = (cam_ref[7, 0], cam_ref[7, 1], cam_ref[7, 2])
+            cam_do, cam_dh, cam_dv, cam_dll = (cam_row(r)
+                                               for r in range(4, 8))
 
-        intersect, shadow = _make_scene_fns(fscene, cfg, sph_ref, tri_ref,
-                                            chunk=chunk,
-                                            stats_ref=stats_ref,
-                                            mxu_g_ref=mxu_g_ref)
+        intersect, shadow = _make_scene_fns(fscene, cfg, sph_ref, tri_ref)
 
         # persistent planes: accumulation + vispoints live in out_ref
         for ch in range(N_CHANNELS):
             out_ref[ch] = planes_ref[ch]
 
-        it0 = rad_ref[0, 1]          # starting iteration (f32)
+        it0 = fp_ref[1]          # starting iteration (f32)
         if budget_mode:
             # per-lane planes supersede the scalars (budget counts are
-            # small ints, exact in f32)
-            spp = jnp.round(aux_ref[0]).astype(jnp.int32)      # budget
-            it0_i = jnp.round(aux_ref[1]).astype(jnp.int32)    # base count
+            # small non-negative ints, exact in f32: truncation is exact)
+            spp = aux_ref[0].astype(jnp.int32)      # budget
+            it0_i = aux_ref[1].astype(jnp.int32)    # base count
             it0 = aux_ref[1]
-            r0 = aux_ref[2]                                    # SPPM radius
-        # layout-anchored zeros: loaded from a real VMEM input, so every
-        # while-carry initialized from them has a concrete (non-replicated)
-        # layout. Mosaic's layout solver otherwise pins constant-initialized
-        # carries replicated and then rejects the non-replicated loop
-        # updates ("Invalid relayout ... {0,0} -> {*,*}").
-        izero = z_ref[...]
-        zero = izero.astype(jnp.float32)
+            r0 = aux_ref[2]                         # SPPM radius
+        izero = jnp.zeros((R, 128), jnp.int32)
+        zero = jnp.zeros((R, 128), jnp.float32)
         z3 = (zero, zero, zero)
         st = {
             "anywork": jnp.int32(1),
@@ -229,11 +202,6 @@ def _make_regen_kernel(fscene: FrozenScene, cfg: RenderConfig, lanes: int,
             "radius": zero + r0,
             "rays": jnp.float32(0.0),
         }
-        if cfg.count_iters or cfg.count_walk_stats:
-            # loop-iteration counter (roofline/occupancy accounting,
-            # tpurt/roofline.py): occupancy = rays / (iters * lanes).
-            # Flag-gated so shipped kernels stay byte-identical.
-            st["iters"] = jnp.float32(0.0)
         if track_collapse:
             st["emh"] = tuple(zero for _ in range(3 * L))
             st["coll"] = izero
@@ -259,9 +227,6 @@ def _make_regen_kernel(fscene: FrozenScene, cfg: RenderConfig, lanes: int,
             else:
                 rad_s = rad
             for c in range(3):
-                # add-form (not select-form): anchors the layout to out_ref —
-                # Mosaic rejects relayouts of non-replicated updates into a
-                # replicated-constant-initialized carry otherwise
                 out_ref[c] = out_ref[c] + jnp.where(fin, rad_s[c],
                                                     jnp.float32(0.0))
             sample = jnp.where(fin, sample + 1, sample)
@@ -277,7 +242,6 @@ def _make_regen_kernel(fscene: FrozenScene, cfg: RenderConfig, lanes: int,
             # ---- camera spawn (lax.cond: most iterations have no spawning
             # lane, skipping the ~650-op CIE select chain entirely)
             spawn_c = ~active & (phase == 0) & (sample < spp) & valid_px
-            spawn_c_pre = spawn_c  # for the drift-stall counter below
             # camera drift bound: pallas_regen_drift_cam (0 = the tight
             # bound) lets camera spawns run ahead of the photon gate —
             # see config.py; photon-phase entry is gated separately below
@@ -375,7 +339,7 @@ def _make_regen_kernel(fscene: FrozenScene, cfg: RenderConfig, lanes: int,
                 return (zero,) * 7 + (izero.astype(jnp.uint32),) \
                     + (zero,) * n_em
 
-            vals = jax.lax.cond(jnp.any(spawn_c), _cam_spawn_vals,
+            vals = jax.lax.cond(_any(spawn_c), _cam_spawn_vals,
                                 _cam_spawn_skip, 0)
             o0 = vals[0:3]
             d0 = vals[3:6]
@@ -524,7 +488,7 @@ def _make_regen_kernel(fscene: FrozenScene, cfg: RenderConfig, lanes: int,
                 def _ph_spawn_skip(_):
                     return (zero,) * 9 + (izero.astype(jnp.uint32),)
 
-                pvals = jax.lax.cond(jnp.any(spawn_p), _ph_spawn_vals,
+                pvals = jax.lax.cond(_any(spawn_p), _ph_spawn_vals,
                                      _ph_spawn_skip, 0)
                 ph_o = pvals[0:3]
                 ph_d = pvals[3:6]
@@ -544,22 +508,6 @@ def _make_regen_kernel(fscene: FrozenScene, cfg: RenderConfig, lanes: int,
 
             is_cam = phase == 0
             is_ph = phase == 1
-
-            if stats_ref is not None:
-                # cfg.count_walk_stats diagnostics (docs/DESIGN.md):
-                # 0/1 = active camera/photon lane-iterations; 2 = near-
-                # empty ("straggler") iterations, <=64 of `lanes` active;
-                # 3 = lane-iterations stalled by the drift gate. Cells
-                # 4-7 are filled by the chunked walks (_make_scene_fns).
-                n_cam = jnp.sum(_mask_f32(active & is_cam))
-                n_ph = jnp.sum(_mask_f32(active & is_ph))
-                stats_ref[0] = stats_ref[0] + n_cam
-                stats_ref[1] = stats_ref[1] + n_ph
-                stats_ref[2] = stats_ref[2] + jnp.where(
-                    n_cam + n_ph <= 64.0, jnp.float32(1.0),
-                    jnp.float32(0.0))
-                stats_ref[3] = stats_ref[3] + jnp.sum(
-                    _mask_f32(spawn_c_pre & ~spawn_c))
 
             # ---- shared bounce: intersect + material
             if cfg.pallas_phase_split_votes and K > 0:
@@ -660,7 +608,7 @@ def _make_regen_kernel(fscene: FrozenScene, cfg: RenderConfig, lanes: int,
                 dvec = s.vsub(loc, vpos)
                 dist = jnp.sqrt(jnp.maximum(s.vdot(dvec, dvec), 0.0))
                 near = dist < radius
-                f = _evaluate_bsdf_c(vwo, s.vneg(d), vnorm, v_color, v_rough,
+                f = evaluate_bsdf_c(vwo, s.vneg(d), vnorm, v_color, v_rough,
                                      v_ior + cauchy_add, v_isdiff, v_ismetal)
                 inv_pi_r2 = 1.0 / jnp.maximum(
                     jnp.float32(np.pi) * radius * radius, 1e-10)
@@ -776,32 +724,22 @@ def _make_regen_kernel(fscene: FrozenScene, cfg: RenderConfig, lanes: int,
                 "rad": rad, "lam": lam, "em": em, "rng": rng,
                 "radius": radius, "rays": rays,
             }
-            if "iters" in st:
-                out["iters"] = st["iters"] + 1.0
             if track_collapse:
                 out["emh"] = emh
                 out["coll"] = coll
             return out
 
         st = jax.lax.while_loop(cond, body, st)
-        rays_ref[tile, 0] = st["rays"]
-        if "iters" in st:
-            rays_ref[tile, 1] = st["iters"]
-        if stats_ref is not None:
-            for i in range(N_STAT_CELLS):
-                rays_ref[tile, 2 + i] = stats_ref[i]
+        rays_ref[0] = st["rays"]
 
     return kernel
 
 
 def regen_call(fscene, cfg, camera, planes, base_seed, spp, iteration,
-               radius, tile_base, interpret, depth=None, aux=None,
-               want_iters=False):
+               radius, tile_base, interpret, depth=None, aux=None):
     """Planes-level regenerative step: the raw pallas_call. Shared by the
     single-chip wrapper and the shard_map multi-chip step (tile_base = the
-    device slab's global tile offset). Returns (planes, rays_per_tile);
-    want_iters=True appends the per-tile loop-iteration counts
-    (roofline/occupancy accounting, tpurt/roofline.py).
+    device slab's global tile offset). Returns (planes, rays_per_tile).
 
     `aux` (f32 (3, TR, 128): per-lane budget / base count / SPPM radius,
     plane order) switches the kernel to budget mode — see
@@ -809,11 +747,24 @@ def regen_call(fscene, cfg, camera, planes, base_seed, spp, iteration,
     signature symmetry only."""
     lanes = cfg.pallas_lanes
     R = lanes // 128
+    if lanes % 128 or R & (R - 1):
+        raise ValueError(f"cfg.pallas_lanes must be 128 times a power of "
+                         f"two, got {lanes}")
     TR = planes.shape[1]
-    assert TR % R == 0, (
-        f"state rows {TR} not divisible by pallas tile rows {R}; "
-        "init the state with cfg.backend='pallas'")
+    if TR % R:
+        raise ValueError(
+            f"state rows {TR} not divisible by pallas tile rows {R}; "
+            "init the state with cfg.backend='pallas'")
     n_tiles = TR // R
+    # Two threads per lane: the fastest tiles of the lanes x warps sweep
+    # (PERF.md). With as many lanes as threads the Triton compiler crashes
+    # on the photon kernel, and a GPU program holds at most 32 warps.
+    num_warps = lanes // 16
+    if not interpret and num_warps > 32:
+        raise ValueError(
+            f"cfg.pallas_lanes={lanes} needs {num_warps} warps per program "
+            "(two threads per lane); a GPU program holds at most 32, so "
+            "compiled kernels take pallas_lanes <= 512")
 
     if cfg.motion_blur:
         from tpurt.camera import motion_rows
@@ -821,68 +772,43 @@ def regen_call(fscene, cfg, camera, planes, base_seed, spp, iteration,
     else:
         cam = jnp.stack([camera.origin, camera.horizontal,
                          camera.vertical, camera.lower_left])
-    seed_arr = jnp.asarray(base_seed, jnp.uint32).reshape(1, 1)
-    spp_arr = jnp.stack([jnp.asarray(spp, jnp.int32),
-                         jnp.asarray(iteration, jnp.int32),
-                         jnp.asarray(cfg.depth if depth is None else depth,
-                                     jnp.int32)]).reshape(1, 3)
-    rad_arr = jnp.stack([jnp.asarray(radius, jnp.float32),
-                         jnp.asarray(iteration, jnp.int32)
-                         .astype(jnp.float32)]).reshape(1, 2)
-    base_arr = jnp.asarray(tile_base, jnp.int32).reshape(1, 1)
-
+    cam = jnp.pad(cam.astype(jnp.float32).reshape(-1),
+                  (0, _CAM_LEN - cam.size))
+    ip = jnp.stack([jnp.asarray(spp, jnp.int32),
+                    jnp.asarray(iteration, jnp.int32),
+                    jnp.asarray(cfg.depth if depth is None else depth,
+                                jnp.int32),
+                    jnp.asarray(tile_base, jnp.int32)])
+    seed = jnp.asarray(base_seed, jnp.uint32).reshape(1)
+    fp = jnp.stack([jnp.asarray(radius, jnp.float32),
+                    jnp.asarray(iteration, jnp.int32).astype(jnp.float32)])
     sph_tab, tri_tab = _prim_tables(fscene, cfg)
-    chunk_tab, chunk_meta = _chunk_tables(fscene, cfg)
-    from tpurt.kernels.mega_pallas import _gmat_table
-    gm = _gmat_table(fscene, cfg)   # () or (G,) — MXU leaf-test matrix
-    gm_specs = [pl.BlockSpec(memory_space=pltpu.VMEM)] * len(gm)
 
     kernel = _make_regen_kernel(fscene, cfg, lanes,
                                 budget_mode=aux is not None)
-    vb = pl.BlockSpec((N_CHANNELS, R, 128), lambda i: (0, i, 0),
-                      memory_space=pltpu.VMEM)
-    vz = pl.BlockSpec((R, 128), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    sm = pl.BlockSpec(memory_space=pltpu.SMEM)
+    vb = pl.BlockSpec((N_CHANNELS, R, 128), lambda i: (0, i, 0))
+    whole = pl.BlockSpec()
     aux_args, aux_specs = (), []
     if aux is not None:
         aux_args = (aux,)
-        aux_specs = [pl.BlockSpec((3, R, 128), lambda i: (0, i, 0),
-                                  memory_space=pltpu.VMEM)]
-    zeros_in = jnp.zeros((R, 128), jnp.int32)
-    # col 0: traced segments; col 1 (cfg.count_iters): loop iterations
-    # (occupancy accounting, tpurt/roofline.py); with
-    # cfg.count_walk_stats, cols 2..2+N_STAT_CELLS carry the diagnostic
-    # cells (see _make_regen_kernel)
-    n_cols = (2 + N_STAT_CELLS if cfg.count_walk_stats
-              else 2 if cfg.count_iters else 1)
-    scratch = list(chunk_scratch_shapes(chunk_meta))
-    if cfg.count_walk_stats:
-        scratch.append(pltpu.SMEM((N_STAT_CELLS,), jnp.float32))
+        aux_specs = [pl.BlockSpec((3, R, 128), lambda i: (0, i, 0))]
     new_planes, rays = pl.pallas_call(
         kernel,
         grid=(n_tiles,),
-        in_specs=[vb, vz, sm, sm, sm, sm, sm, sm, sm] + aux_specs
-        + gm_specs
-        + [pl.BlockSpec(memory_space=pl.ANY)] * len(chunk_tab),
-        out_specs=[vb, sm],
+        in_specs=[vb] + [whole] * 6 + aux_specs,
+        out_specs=[vb, pl.BlockSpec((1,), lambda i: (i,))],
         out_shape=[
             jax.ShapeDtypeStruct(planes.shape, jnp.float32),
-            jax.ShapeDtypeStruct((n_tiles, n_cols), jnp.float32),
+            jax.ShapeDtypeStruct((n_tiles,), jnp.float32),
         ],
-        scratch_shapes=scratch,
         input_output_aliases={0: 0},
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=num_warps, num_stages=1),
         interpret=interpret,
-    )(planes, zeros_in, cam, seed_arr, spp_arr, rad_arr, base_arr,
-      sph_tab, tri_tab, *aux_args, *gm, *chunk_tab)
-    if want_iters:
-        if not (cfg.count_iters or cfg.count_walk_stats):
-            raise ValueError("want_iters needs cfg.count_iters (or "
-                             "count_walk_stats) — the counter is "
-                             "compiled out otherwise")
-        if cfg.count_walk_stats:
-            return new_planes, rays[:, 0], rays[:, 1:]
-        return new_planes, rays[:, 0], rays[:, 1]
-    return new_planes, rays[:, 0]
+        name="regen_megakernel",
+    )(planes, cam, ip, seed, fp, sph_tab, tri_tab, *aux_args)
+    return new_planes, rays
 
 
 def radius_after(cfg, iteration, radius, spp):
@@ -899,7 +825,7 @@ def radius_after(cfg, iteration, radius, spp):
 def _render_regen_jit(fscene, cfg, camera, state, base_seed, spp, interpret,
                       depth=None):
     # depth is DYNAMIC (None = cfg.depth): preview frames share the full
-    # kernel's compile — the bound is a scalar SMEM input, not a constant
+    # kernel's compile — the bound is a scalar input, not a constant
     planes = state_to_planes(state, cfg)
     new_planes, rays = regen_call(
         fscene, cfg, camera, planes, base_seed, spp, state.iteration,
@@ -923,83 +849,21 @@ def _render_regen_jit(fscene, cfg, camera, state, base_seed, spp, interpret,
 
 
 def render_regen(scene, cfg: RenderConfig, camera, state, base_seed, spp,
-                 interpret: bool | None = None, depth: int | None = None):
+                 depth: int | None = None):
     """Progressive render via the regenerative megakernel (full SPPM).
-    Scene must be concrete; scenes beyond the kernel budget fall back to
-    the XLA integrator (mega_pallas.xla_fallback — NOT to the tile-sync
-    Pallas kernel, which shares the same SMEM budgets). `depth` overrides
-    cfg.depth (preview frames)."""
-    if not supports_scene(scene, cfg):
-        from tpurt.kernels.mega_pallas import xla_fallback
-        return xla_fallback(scene, cfg, camera, state, base_seed, spp,
-                            depth=depth)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    Scene must be concrete and within the kernel's scope (check_scene
+    raises otherwise). `depth` overrides cfg.depth (preview frames)."""
+    check_scene(scene, cfg)
     fscene = freeze_scene(scene)
     return _render_regen_jit(fscene, cfg, camera, state,
                              jnp.asarray(base_seed, jnp.uint32),
-                             jnp.asarray(spp, jnp.int32), interpret,
+                             jnp.asarray(spp, jnp.int32), pallas_interpret(),
                              # always a concrete scalar: a preview call
                              # (depth=1) and a full call then share ONE
                              # jit signature -> one compile
                              depth=jnp.asarray(
                                  cfg.depth if depth is None else depth,
                                  jnp.int32))
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("fscene", "cfg", "interpret"))
-def _render_regen_stats_jit(fscene, cfg, camera, state, base_seed, spp,
-                            interpret, depth=None):
-    """_render_regen_jit + the per-tile iteration counts summed — the
-    roofline probe path (tpurt/roofline.py). Same kernel, same streams."""
-    planes = state_to_planes(state, cfg)
-    new_planes, rays, iters = regen_call(
-        fscene, cfg, camera, planes, base_seed, spp, state.iteration,
-        state.photon_radius, 0, interpret, depth=depth, want_iters=True)
-
-    P = new_planes.shape[1] * 128
-    flat = planes_pixel_order(cfg, new_planes.reshape(N_CHANNELS, P))
-    v3 = lambda a: jnp.stack([flat[a], flat[a + 1], flat[a + 2]], axis=-1)
-    r_new = radius_after(cfg, state.iteration, state.photon_radius, spp)
-    st = dataclasses.replace(
-        state,
-        rgb_sum=v3(0),
-        n_samples=state.n_samples + spp.astype(jnp.float32),
-        vis_pos=v3(3), vis_norm=v3(6), vis_wo=v3(9), vis_tp=v3(12),
-        vis_mat=flat[15].astype(jnp.int32),
-        iteration=state.iteration + spp, photon_radius=r_new,
-        rays=state.rays + jnp.sum(rays),
-    )
-    # with cfg.count_walk_stats `iters` is the (n_tiles, 1+N_STAT_CELLS)
-    # matrix [iters | diagnostic cells] — sum over tiles either way
-    return st, jnp.sum(iters, axis=0)
-
-
-def render_regen_stats(scene, cfg: RenderConfig, camera, state, base_seed,
-                       spp, interpret: bool | None = None):
-    """render_regen + total kernel loop iterations (occupancy/roofline
-    accounting). Only for scenes the regen kernel supports (no XLA
-    fallback — the roofline model is kernel-specific).
-
-    Returns (state, iters_total) — or, when cfg.count_walk_stats,
-    (state, vec13) where vec13 = [iters, cam_lane_iters, ph_lane_iters,
-    straggler_iters, drift_stall_lane_iters, closest_worklist,
-    closest_swept, shadow_worklist, shadow_swept, cull_closest_visited,
-    cull_closest_taken, cull_shadow_visited, cull_shadow_taken] summed
-    over tiles (cells 8-11 = the cull-tree branch mix, VERDICT r4
-    item 4)."""
-    if not supports_scene(scene, cfg):
-        raise ValueError("roofline stats need the regen kernel; scene "
-                         "exceeds its budget")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if not (cfg.count_iters or cfg.count_walk_stats):
-        cfg = cfg.with_(count_iters=True)   # the counter this path reads
-    fscene = freeze_scene(scene)
-    return _render_regen_stats_jit(fscene, cfg, camera, state,
-                                   jnp.asarray(base_seed, jnp.uint32),
-                                   jnp.asarray(spp, jnp.int32), interpret)
 
 
 def budget_radius_plane(cfg, counts_f):
@@ -1023,7 +887,6 @@ def budget_radius_plane(cfg, counts_f):
                                     "interpret"))
 def _render_budget_regen_jit(fscene, cfg, camera, state, base_seed, budgets,
                              max_budget, interpret):
-    from tpurt.kernels.mega_pallas import pixels_to_planes_order
     P = state.rgb_sum.shape[0]
     TR = P // 128
 
@@ -1060,8 +923,7 @@ def _render_budget_regen_jit(fscene, cfg, camera, state, base_seed, budgets,
 
 
 def render_budget_regen(scene, cfg: RenderConfig, camera, state, base_seed,
-                        budgets, max_budget: int,
-                        interpret: bool | None = None):
+                        budgets, max_budget: int):
     """Regenerative-megakernel render under a per-pixel budget map
     (adaptive sampling with the FULL estimator — photons included, unlike
     the wavefront budget renderers). Pixel p's k-th sample draws the
@@ -1071,14 +933,9 @@ def render_budget_regen(scene, cfg: RenderConfig, camera, state, base_seed,
     equal one combined call."""
     from tpurt.render import _check_camera_kind   # deferred: import cycle
     _check_camera_kind(cfg, camera)
-    if not supports_scene(scene, cfg):
-        raise ValueError(
-            "adaptive budgets need the Pallas regen kernel; this scene "
-            "exceeds its budget — use a wavefront backend (camera-path "
-            "adaptive) or raise the kernel limits")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    check_scene(scene, cfg)
     fscene = freeze_scene(scene)
     return _render_budget_regen_jit(fscene, cfg, camera, state,
                                     jnp.asarray(base_seed, jnp.uint32),
-                                    budgets, int(max_budget), interpret)
+                                    budgets, int(max_budget),
+                                    pallas_interpret())

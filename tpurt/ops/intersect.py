@@ -10,14 +10,13 @@ Reference semantics (ref: src/kernels/mega_kernel.wgsl):
   shadow_attenuation:511-564   dielectric spheres transmit (1-R1)(1-R2),
                                diffuse spheres / all triangles occlude fully
 
-TPU-first design: instead of a per-ray scalar loop we intersect a *tile* of
+Array-first design: instead of a per-ray scalar loop we intersect a *tile* of
 rays (N,) against primitive *chunks* (C,) as (N, C) vector ops, carrying the
 running closest hit through a fori_loop.  This keeps peak memory at N*C
-floats (VMEM-safe inside Pallas kernels) while staying fully data-parallel on
-the VPU; per-chunk winner extraction uses one-hot matmuls (MXU) instead of
-gathers.  The BVH path exists for huge meshes in the XLA/jnp path; the Pallas
-megakernel uses the chunked brute-force sweep, which on a vector machine beats
-divergent stack traversal for the mesh sizes this renderer targets.
+floats while staying fully data-parallel; per-chunk winner extraction uses
+one-hot matmuls instead of gathers.  The BVH path (cfg.use_bvh) covers
+closest-hit triangles of large meshes; the fused kernel sweeps its (small)
+scenes brute force.
 """
 
 from __future__ import annotations
@@ -38,13 +37,13 @@ MISS = jnp.float32(1e30)  # sentinel "no hit" distance (reference uses -1e7)
 def _onehot_select(idx, chunk):
     """Select rows of `chunk` (C, D) by per-lane idx (N,) via one-hot matmul.
 
-    Gather-free: (N, C) @ (C, D) runs on the MXU. Used to extract the winning
+    Gather-free: one (N, C) @ (C, D) product. Used to extract the winning
     primitive's attributes after a chunk argmin.
     """
     C = chunk.shape[0]
     oh = (idx[..., None] == jnp.arange(C, dtype=jnp.int32)).astype(chunk.dtype)
-    # HIGHEST: default TPU matmul precision rounds operands to bf16 — the
-    # selected centers/normals/ids would silently lose ~16 mantissa bits
+    # HIGHEST: a float32 matmul may otherwise run in TF32 (GPU) — the
+    # selected centers/normals/ids would silently lose ~13 mantissa bits
     return jnp.matmul(oh, chunk, precision=jax.lax.Precision.HIGHEST)
 
 

@@ -18,7 +18,7 @@ Design (Burley, "Practical Hash-based Owen Scrambling", JCGT 2020):
   * Sobol points in 6 dimensions (dim 0 = van der Corput; dims 1-5 from
     the Joe-Kuo direction numbers), evaluated by XOR-folding direction
     numbers over the index bits — pure uint32 ALU, so the same code runs
-    in jnp and inside Pallas TPU kernels (like ops/rng.py).
+    in jnp and inside Pallas kernels (like ops/rng.py).
   * Per-(pixel, dimension) Owen scrambling via the Laine-Karras hash:
     each pixel sees its own randomization of the shared point set, which
     breaks cross-pixel correlation while preserving every elementary-

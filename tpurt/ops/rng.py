@@ -5,7 +5,7 @@ renderer (ref: src/kernels/mega_kernel.wgsl:655-675, stream seeding at :991),
 but written as pure functions over uint32 *arrays* so the same code runs
 
   * in plain jnp (CPU oracle / XLA path),
-  * inside Pallas TPU kernels (uint32 ALU ops lower fine on the VPU),
+  * inside Pallas kernels (plain uint32 ALU ops),
   * under vmap/jit without host syncs.
 
 State threading is explicit: every sampler takes a uint32 state array and
@@ -32,7 +32,7 @@ TWO_PI = 6.283185307179586
 
 
 def _bitcast_u32(x):
-    """int32 -> uint32 reinterpret (Mosaic-safe; astype casts are not)."""
+    """int32 -> uint32 reinterpret (a bitcast, never a value cast)."""
     if x.dtype == jnp.uint32:
         return x
     return jax.lax.bitcast_convert_type(x, jnp.uint32)
@@ -40,7 +40,7 @@ def _bitcast_u32(x):
 
 def _u32_to_f32(bits):
     """Exact uint32 -> float32 value conversion without a u32->f32 cast
-    (unsupported in Mosaic). hi*2^16 and lo are exact f32, so the single
+    (kept to two signed 16-bit halves). hi*2^16 and lo are exact f32, so the single
     rounding of their sum equals rounding the 32-bit integer directly —
     bit-identical to f32(bits) on every backend."""
     i = jax.lax.bitcast_convert_type(bits, jnp.int32)
@@ -123,7 +123,7 @@ def unit_vec_from_u(u):
     """Uniform sphere direction from a (..., 2) uniform pair:
     theta = 2*pi*u1, phi = acos(1 - 2*u2) (ref: mega_kernel.wgsl:670-675).
     The acos cancels algebraically (cos(acos z) = z, sin(acos z) = sqrt(1-z^2))
-    — cheaper, and Mosaic has no acos lowering."""
+    — cheaper than evaluating it."""
     theta = jnp.float32(TWO_PI) * u[..., 0]
     z = jnp.clip(1.0 - 2.0 * u[..., 1], -1.0, 1.0)
     sp = jnp.sqrt(jnp.maximum(0.0, 1.0 - z * z))

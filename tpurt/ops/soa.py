@@ -1,10 +1,10 @@
-"""Component-form (structure-of-arrays) physics for Pallas TPU kernels.
+"""Component-form (structure-of-arrays) physics for Pallas kernels.
 
 The XLA integrator (tpurt.integrate) carries vectors as (N, 3) arrays, which
 XLA lays out freely.  Inside a Pallas kernel the layout is ours to choose, and
-a (N, 3) array would pad its last axis 3 -> 128 lanes (97% waste on the VPU).
-So kernels represent a vec3 as a *tuple of three (R, 128) planes* — every op
-runs dense on full 8x128 VPU tiles with zero padding.
+a (N, 3) array would pad or stride its last axis.  So kernels represent a
+vec3 as a *tuple of three (R, 128) planes* — one lane per pixel, every op
+dense with zero padding.
 
 This module is the component-form mirror of tpurt.ops.{bsdf,sampling,spectra,
 intersect}: identical formulas (same reference citations apply, see those
@@ -113,8 +113,8 @@ def to_world_c(w, n, t, b):
 
 def unit_vec_from_u_c(u1, u2):
     """The reference computes phi = acos(1-2u) then sin/cos(phi); since
-    cos(acos(z)) = z and sin(acos(z)) = sqrt(1-z^2), the acos (which Mosaic
-    doesn't lower anyway) cancels out."""
+    cos(acos(z)) = z and sin(acos(z)) = sqrt(1-z^2), the acos cancels
+    out."""
     theta = jnp.float32(TWO_PI) * u1
     z = jnp.clip(1.0 - 2.0 * u2, -1.0, 1.0)
     sp = jnp.sqrt(jnp.maximum(0.0, 1.0 - z * z))
@@ -232,9 +232,9 @@ def refract_c(wo, n, eta):
 
 # ----- CIE lookup as an unrolled select chain -----
 #
-# The (N,3) path uses a one-hot matmul on the MXU (ops/spectra.py); inside a
+# The (N,3) path uses a one-hot matmul (ops/spectra.py); inside a
 # component-form kernel the 81-entry table lerp unrolls into compare+selects
-# on the VPU instead.  It runs ONCE per frame per lane (lambda is fixed for
+# instead.  It runs ONCE per frame per lane (lambda is fixed for
 # the whole path), so the ~160 fused select ops amortize over every bounce.
 
 def cie_to_rgb_c(lambda_nm):

@@ -91,8 +91,8 @@ XYZ_TO_SRGB = np.array([
 ], dtype=np.float32)
 
 # Precomputed per-wavelength sRGB response: (81, 3). Baking the matrix into
-# the table turns the in-kernel conversion into one lerp per channel (cheap
-# VPU work, no 3x3 matmul per lane).
+# the table turns the in-kernel conversion into one lerp per channel (no 3x3
+# matmul per lane).
 CIE_RGB_TABLE = np.stack([CIE_X, CIE_Y, CIE_Z], axis=-1) @ XYZ_TO_SRGB.T
 
 
@@ -101,7 +101,7 @@ def cie_to_rgb(lambda_nm, table=None):
 
     Semantics match the reference kernel (ref: mega_kernel.wgsl:444-458):
     index clamped to [0, 80], linear interpolation between 5nm samples.
-    ``table`` lets Pallas kernels pass a VMEM-resident copy.
+    ``table`` lets a caller pass its own device-resident copy.
     Returns (..., 3) float32.
     """
     if table is None:
@@ -113,12 +113,11 @@ def cie_to_rgb(lambda_nm, table=None):
     f = (t - i.astype(jnp.float32))[..., None]
     a = jnp.minimum(i, N_CIE - 1)
     b = jnp.minimum(i + 1, N_CIE - 1)
-    # One-hot matmul instead of gather: (..., 81) @ (81, 3). On TPU this is
-    # an MXU op; gathers from a 81-row table would serialize on the VPU.
+    # One-hot matmul instead of gather: (..., 81) @ (81, 3).
     oh_a = (a[..., None] == jnp.arange(N_CIE, dtype=jnp.int32)).astype(jnp.float32)
     oh_b = (b[..., None] == jnp.arange(N_CIE, dtype=jnp.int32)).astype(jnp.float32)
-    # HIGHEST: default TPU matmul precision would round the CIE values
-    # to bf16 through the one-hot select
+    # HIGHEST: a float32 matmul may otherwise run in TF32 (GPU) and round
+    # the CIE values through the one-hot select
     va = jnp.matmul(oh_a, table, precision=jax.lax.Precision.HIGHEST)
     vb = jnp.matmul(oh_b, table, precision=jax.lax.Precision.HIGHEST)
     return va * (1.0 - f) + vb * f

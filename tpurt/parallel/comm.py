@@ -21,7 +21,7 @@ tests/test_comm_bytes.py.
 
 Per-axis interpretation:
   * pixel sharding  — one scalar psum per step (4 B): embarrassingly
-    parallel, ICI-negligible.
+    parallel, interconnect-negligible.
   * sample sharding — psum of the accumulator deltas (rgb_sum +
     n_samples + vispoints) once per call.
   * geometry sharding — all_gather of the 8-plane hit record per bounce

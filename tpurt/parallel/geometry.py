@@ -22,10 +22,9 @@ across the mesh with XLA collectives:
 The combine happens inside integrate.intersect_scene/_shadow via the
 trace-time _GEOM_HOOK, so the whole integrator stack — NEE, camera loop,
 photon walk — is sharding-unaware.  This is the bounce-synchronous XLA
-path by design: a fused Pallas kernel's in-kernel bounce loop cannot host
-per-bounce ICI collectives (Pallas remote copies are sender-initiated —
-no random-access remote reads), so geometry scaling rides the integrator
-where collectives compose with lax control flow.
+path by design: a fused kernel's in-kernel bounce loop cannot host
+per-bounce collectives between devices, so geometry scaling rides the
+integrator where collectives compose with lax control flow.
 
 Communication volume — MEASURED from the traced build (round 5,
 tpurt.parallel.comm.collective_stats; table in docs/DESIGN.md): per
@@ -33,13 +32,13 @@ intersect, all_gather of 8 f32 planes per 4096-pixel tile (131072 B
 operand) -> at 1080p x 8 devices each device receives 507 tiles x
 128 KiB x 7 = 465 MB per bounce (the round-4 closed-form prediction,
 confirmed); per NEE shadow, a pmin of one f32 plane.  Geometry sharding
-trades ICI bandwidth for HBM capacity and is the right axis ONLY when
+trades interconnect bandwidth for HBM capacity and is the right axis ONLY when
 the scene does not fit one chip; make_2d_sharded_step composes it with
 pixel sharding on a (px, geom) mesh — measured 16.6 MB/bounce/device on
 the 4x2 mesh, ~28x less.
 
-Works identically on the virtual 8-device CPU mesh (tests/dryrun) and a
-real slice.  Ref for the capability being scaled: the reference keeps the
+Works identically on the virtual 8-device CPU mesh (tests/dryrun) and on
+several GPUs.  Ref for the capability being scaled: the reference keeps the
 whole mesh in GPU storage buffers (src/instance.rs:175-310) — one GPU,
 one memory.
 """

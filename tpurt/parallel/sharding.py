@@ -1,21 +1,23 @@
 """Multi-chip scaling over a jax.sharding.Mesh.
 
 The reference is strictly single-GPU (ref: src/lib.rs:148-163 — one device,
-one queue; SURVEY.md §5 "distributed communication backend: ABSENT").  The
-TPU rebuild scales two embarrassingly-parallel axes instead, per SURVEY.md
-§5's design decision:
+one queue; SURVEY.md §5 "distributed communication backend: ABSENT").  This
+rebuild scales two embarrassingly-parallel axes instead, per SURVEY.md §5's
+design decision:
 
   * pixel sharding  — each chip owns a contiguous slab of pixels and its
     slice of the accumulation / vispoint state; a frame needs zero
     communication (the scene is replicated), and only the final
-    resolve/gather rides ICI.
+    resolve/gather crosses the interconnect.
   * sample sharding — full image per chip, each chip advancing its own
     block of progressive samples, psum-reduced accumulators — for images
     too small to keep many chips busy (make_sample_sharded_step).
 
-Pixel sharding is expressed with shard_map over a 1-D mesh; XLA inserts the
-(trivial) collectives.  Works identically on real TPU slices and on the 8-device
-virtual CPU mesh used by the tests and dryrun.
+Pixel sharding is expressed with shard_map over a 1-D mesh built from
+jax.devices() (every GPU of a host reaches every other at the same rate, so
+the mesh follows the algorithm alone); XLA inserts the (trivial)
+collectives.  Works identically on several GPUs and on the virtual CPU mesh
+used by the tests.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from tpurt.config import RenderConfig
-from tpurt.render import RenderState, sppm_radius_step
+from tpurt.render import RenderState
+from tpurt.runtime import pallas_interpret
 
 AXIS = "px"
 
@@ -226,14 +229,12 @@ def make_wavefront_sharded_step(mesh: Mesh, cfg: RenderConfig, spp: int = 1):
     persistent ray pool (cfg.wf_pool slots per device) over its pixel slab.
 
     Pool occupancy is per-device, so path-length divergence never crosses
-    ICI; the only collective per call is the scalar ray-count psum. Pixel
+    the interconnect; the only collective per call is the scalar ray-count psum. Pixel
     ids inside each slab stay global for RNG/camera purposes
     (wavefront.wavefront_render_slab), so every (pixel, sample) path is the
     exact single-chip path — the image differs from the whole-image pool
     only by float splat order. Use with init_state_sharded; resolve with
-    resolve_image_sharded. cfg.backend must be "wavefront" (the XLA pool
-    form; the fused Pallas wavefront keeps its own plane layout — shard
-    that via make_regen_sharded_step instead).
+    resolve_image_sharded. cfg.backend must be "wavefront".
 
     Returns f(scene, camera, state, base_seed) -> state.
     """
@@ -303,7 +304,7 @@ def make_wavefront_budget_sharded_step(mesh: Mesh, cfg: RenderConfig,
     return jax.jit(sharded)
 
 
-# ----- Pallas megakernel over the mesh (the production multi-chip path) -----
+# ----- the fused kernel over the mesh -----
 
 def padded_pixels_pallas(cfg: RenderConfig, n_dev: int) -> int:
     from tpurt.kernels.mega_pallas import block_grid
@@ -326,86 +327,19 @@ def init_planes_sharded(cfg: RenderConfig, mesh: Mesh):
     return jnp.zeros((N_CHANNELS, Pn // 128, 128), jnp.float32, device=sh)
 
 
-def make_pallas_sharded_step(mesh: Mesh, cfg: RenderConfig, scene,
-                             spp: int = 1, depth: int | None = None,
-                             interpret: bool | None = None):
-    """Multi-chip megakernel step: each device runs the fused Pallas kernel
-    on its pixel slab (tile_base offsets keep pixel ids / RNG streams
-    global, so the image is bit-comparable to the single-chip kernel).
-
-    Scene is frozen into the kernel (concrete scene required). Returns
-    f(camera, planes, iteration, photon_radius, rays, base_seed) ->
-    (planes, iteration, photon_radius, rays); rays is psum-reduced.
-    """
-    from tpurt.kernels import mega_pallas as mp
-    from tpurt.render import _frame_seed
-
-    if not mp.supports_scene(scene, cfg):
-        raise ValueError(
-            "scene exceeds the fused-kernel budgets "
-            "(mega_pallas.supports_scene) — use make_sharded_step (XLA) "
-            f"for {scene.num_spheres} spheres / {scene.num_triangles} tris")
-    fscene = mp.freeze_scene(scene)
-    d = cfg.depth if depth is None else depth
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    R = cfg.pallas_lanes // 128
-
-    # rays: each device counts its own slab; one psum at the end, not per
-    # step (the only collective in the whole multi-chip frame).
-    def body_fixed(camera, planes, it, radius, rays, base_seed):
-        me = jax.lax.axis_index(AXIS)
-        tiles_local = planes.shape[1] // R
-        tile_base = me * tiles_local
-
-        def one(carry, _):
-            planes, it, radius, rays_l = carry
-            seed = _frame_seed(base_seed, it)
-            strata_seed = None
-            if cfg.photon_strata and cfg.photon_strata_window > 1:
-                from tpurt.ops.rng import strata_epoch
-                strata_seed = _frame_seed(base_seed, strata_epoch(cfg, it))
-            new_planes, tile_rays = mp.megakernel_step(
-                fscene, cfg, camera, planes, seed, radius, d,
-                interpret=interpret, tile_base=tile_base,
-                strata_seed=strata_seed,
-                qmc_ctx=(base_seed, it) if cfg.qmc else None)
-            it1 = it + 1
-            k = it1.astype(jnp.float32)
-            r1 = sppm_radius_step(cfg, k, radius)
-            return (new_planes, it1, r1, rays_l + jnp.sum(tile_rays)), None
-
-        (planes, it, radius, rays_l), _ = jax.lax.scan(
-            one, (planes, it, radius, jnp.float32(0.0)), None, length=spp)
-        return planes, it, radius, rays + jax.lax.psum(rays_l, AXIS)
-
-    sharded = jax.shard_map(
-        body_fixed, mesh=mesh,
-        in_specs=(P(), P(None, AXIS, None), P(), P(), P(), P()),
-        out_specs=(P(None, AXIS, None), P(), P(), P()),
-        check_vma=False,
-    )
-    return jax.jit(sharded)
-
-
 def make_regen_sharded_step(mesh: Mesh, cfg: RenderConfig, scene,
-                            spp: int = 1, interpret: bool | None = None):
-    """Multi-chip REGENERATIVE megakernel step (the fastest single-chip
-    path, sharded): each device runs the per-lane sample state machine on
-    its pixel slab; tile_base keeps pixel ids / RNG streams global.
+                            spp: int = 1):
+    """Multi-chip REGENERATIVE megakernel step: each device runs the
+    per-lane sample state machine on its pixel slab; tile_base keeps pixel
+    ids / RNG streams global.
 
     Returns f(camera, planes, iteration, photon_radius, rays, base_seed) ->
     (planes, iteration, photon_radius, rays)."""
     from tpurt.kernels import mega_regen as mr
 
-    if not mr.supports_scene(scene, cfg):
-        raise ValueError(
-            "scene exceeds the fused-kernel budgets "
-            "(mega_pallas.supports_scene) — use make_sharded_step (XLA) "
-            f"for {scene.num_spheres} spheres / {scene.num_triangles} tris")
+    mr.check_scene(scene, cfg)
     fscene = mr.freeze_scene(scene)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    interpret = pallas_interpret()
     R = cfg.pallas_lanes // 128
 
     def body(camera, planes, it, radius, rays, base_seed):
@@ -448,8 +382,7 @@ def build_regen_budget_aux(cfg: RenderConfig, budgets, counts,
     return aux.reshape(3, P_ // 128, 128), budgets
 
 
-def make_regen_budget_sharded_step(mesh: Mesh, cfg: RenderConfig, scene,
-                                   interpret: bool | None = None):
+def make_regen_budget_sharded_step(mesh: Mesh, cfg: RenderConfig, scene):
     """Multi-chip BUDGET regenerative step (adaptive sampling with the
     full estimator, sharded over pixel slabs): each device runs the
     per-lane budget state machine (mega_regen budget mode) on its plane
@@ -465,13 +398,9 @@ def make_regen_budget_sharded_step(mesh: Mesh, cfg: RenderConfig, scene,
     """
     from tpurt.kernels import mega_regen as mr
 
-    if not mr.supports_scene(scene, cfg):
-        raise ValueError(
-            "scene exceeds the fused-kernel budgets — adaptive budgets "
-            "need the regen kernel (see render_budget_regen)")
+    mr.check_scene(scene, cfg)
     fscene = mr.freeze_scene(scene)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    interpret = pallas_interpret()
     R = cfg.pallas_lanes // 128
 
     def body(camera, planes, aux, rays, base_seed):
@@ -494,12 +423,12 @@ def make_regen_budget_sharded_step(mesh: Mesh, cfg: RenderConfig, scene,
 
 
 def make_regen_sample_sharded_step(mesh: Mesh, cfg: RenderConfig, scene,
-                                   spp: int, interpret: bool | None = None):
+                                   spp: int):
     """SAMPLE sharding for the regenerative megakernel: the full plane
     state lives on every chip and device d advances its own block of
     progressive samples [it0 + d*m, it0 + (d+1)*m), m = spp/n_dev — the
-    data-parallel axis of make_sample_sharded_step, on the fastest
-    single-chip path. Radiance channels (0-2, see mega_pallas.N_CHANNELS)
+    data-parallel axis of make_sample_sharded_step, on the fused kernel.
+    Radiance channels (0-2, see mega_pallas.N_CHANNELS)
     psum their deltas; vispoint channels (3-15) take the final device's,
     with the same blockwise-persistence warmup caveat documented in
     make_sample_sharded_step (photon lanes need a vispoint to be live).
@@ -511,20 +440,14 @@ def make_regen_sample_sharded_step(mesh: Mesh, cfg: RenderConfig, scene,
     """
     from tpurt.kernels import mega_regen as mr
 
-    if not mr.supports_scene(scene, cfg):
-        raise ValueError(
-            "scene exceeds the fused-kernel budgets "
-            "(mega_pallas.supports_scene) — use make_sample_sharded_step "
-            f"(XLA) for {scene.num_spheres} spheres / "
-            f"{scene.num_triangles} tris")
+    mr.check_scene(scene, cfg)
     n_dev = mesh.devices.size
     if spp % n_dev:
         raise ValueError(f"spp={spp} must be a multiple of the mesh size "
                          f"({n_dev}) for sample sharding")
     m = spp // n_dev
     fscene = mr.freeze_scene(scene)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    interpret = pallas_interpret()
 
     def body(camera, planes, it, radius, rays, base_seed):
         me = jax.lax.axis_index(AXIS)
@@ -554,54 +477,35 @@ def make_regen_sample_sharded_step(mesh: Mesh, cfg: RenderConfig, scene,
 
 def render_image_sharded(scene, cfg: RenderConfig, camera, spp: int,
                          base_seed: int = 1234, mesh: Mesh | None = None,
-                         axis: str = "auto", interpret: bool | None = None):
-    """One-call multi-chip render: pick the sharding axis and kernel the
-    way render() picks backends, run `spp` samples from a fresh state, and
+                         axis: str = "auto"):
+    """One-call multi-chip render: pick the sharding axis, run `spp`
+    samples from a fresh state on the integrator cfg.backend names, and
     resolve to a host (H, W, 3) image.
 
     axis: "pixel" (each chip owns a slab of pixels), "sample" (full image
     per chip, per-device sample blocks), or "auto" — pixel slabs unless
     the image is too small to give every device one kernel tile of work
-    (< pallas_lanes pixels per device on the Pallas backend, < 4096 on
+    (< pallas_lanes pixels per device on the fused kernel, < 4096 on
     XLA) and spp divides evenly over the mesh.
 
-    Dispatch mirrors render(): cfg.backend "pallas" runs the fused
-    megakernels when the scene fits their budgets (regenerative by
-    default) and falls back to the XLA integrator otherwise; "wavefront"
-    runs one persistent pool per device (pixel axis only); "xla" the
-    reference integrator. Returns (image, info) where info carries
-    {"axis", "kernel", "rays", "iteration"}.
+    cfg.backend "pallas" runs the regenerative megakernel (raising for
+    scenes beyond its scope, like render()); "wavefront" runs one
+    persistent pool per device (pixel axis only); "xla" the reference
+    integrator. Returns (image, info) where info carries {"axis",
+    "kernel", "rays", "iteration"}.
     """
     mesh = make_mesh() if mesh is None else mesh
     n_dev = mesh.devices.size
     seed = jnp.uint32(base_seed)
-
-    from tpurt.render import WAVEFRONT_BACKENDS
-    if cfg.backend in WAVEFRONT_BACKENDS and cfg.backend != "wavefront":
-        raise ValueError(
-            f"backend {cfg.backend!r} has no sharded form — use "
-            "backend='wavefront' (the XLA pool) for multi-chip wavefront")
-
-    use_pallas = False
-    if cfg.backend == "pallas":
-        from tpurt.kernels import mega_pallas as mp
-        use_pallas = mp.supports_scene(scene, cfg)
+    use_pallas = cfg.backend == "pallas"
 
     if axis == "auto":
         per_dev = cfg.n_pixels // n_dev
         small = per_dev < (cfg.pallas_lanes if use_pallas else 4096)
-        # the tile-sync kernel (pallas_regen=False) has no sample-sharded
-        # form — auto never substitutes the regen kernel for it
         axis = "sample" if (small and spp % n_dev == 0
-                            and cfg.backend != "wavefront"
-                            and (cfg.pallas_regen or not use_pallas)) \
-            else "pixel"
+                            and cfg.backend != "wavefront") else "pixel"
     if axis not in ("pixel", "sample"):
         raise ValueError(f"axis must be pixel|sample|auto, got {axis!r}")
-    if axis == "sample" and use_pallas and not cfg.pallas_regen:
-        raise ValueError(
-            "no sample-sharded form of the tile-sync megakernel — use "
-            "pallas_regen=True (the default) or axis='pixel'")
 
     if cfg.backend == "wavefront":
         if axis != "pixel":
@@ -622,19 +526,12 @@ def render_image_sharded(scene, cfg: RenderConfig, camera, spp: int,
             from tpurt.render import padded_pixels
             planes = jnp.zeros((N_CHANNELS, padded_pixels(cfg) // 128, 128),
                                jnp.float32)
-            step = make_regen_sample_sharded_step(mesh, cfg, scene, spp=spp,
-                                                  interpret=interpret)
+            step = make_regen_sample_sharded_step(mesh, cfg, scene, spp=spp)
             kernel = "regen/sample"
         else:
             planes = init_planes_sharded(cfg, mesh)
-            if cfg.pallas_regen:
-                step = make_regen_sharded_step(mesh, cfg, scene, spp=spp,
-                                               interpret=interpret)
-                kernel = "regen/pixel"
-            else:
-                step = make_pallas_sharded_step(mesh, cfg, scene, spp=spp,
-                                                interpret=interpret)
-                kernel = "megakernel/pixel"
+            step = make_regen_sharded_step(mesh, cfg, scene, spp=spp)
+            kernel = "regen/pixel"
         planes, it, radius, rays = step(camera, planes, it0, r0, z, seed)
         return resolve_planes(cfg, planes, int(it)), {
             "axis": axis, "kernel": kernel, "rays": float(rays),
@@ -658,13 +555,33 @@ def render_image_sharded(scene, cfg: RenderConfig, camera, spp: int,
                  "iteration": int(state.iteration)}
 
 
+def planes_to_state(cfg: RenderConfig, planes, iteration, photon_radius,
+                    rays) -> RenderState:
+    """The fused kernel's (16, TR, 128) plane state (plane order, uniform
+    sample count = iteration) as a RenderState in pixel order."""
+    from tpurt.kernels.mega_pallas import N_CHANNELS, planes_pixel_order
+    Pn = planes.shape[1] * 128
+    flat = planes_pixel_order(cfg, planes.reshape(N_CHANNELS, Pn))
+
+    def v3(a):
+        return jnp.stack([flat[a], flat[a + 1], flat[a + 2]], axis=-1)
+    return RenderState(
+        rgb_sum=v3(0),
+        n_samples=jnp.full((Pn,), iteration, jnp.float32),
+        vis_pos=v3(3), vis_norm=v3(6), vis_wo=v3(9), vis_tp=v3(12),
+        vis_mat=flat[15].astype(jnp.int32),
+        iteration=jnp.asarray(iteration, jnp.int32),
+        photon_radius=jnp.asarray(photon_radius, jnp.float32),
+        rays=jnp.asarray(rays, jnp.float32))
+
+
 def resolve_planes(cfg: RenderConfig, planes, iteration):
-    """Resolve sharded plane state to an (H, W, 3) image — fully on-device
-    (the Pallas blit kernel + the XLA pixel-order permutation; XLA inserts
-    the gather collective), with one device->host transfer at the end."""
-    from tpurt.kernels.tonemap_pallas import image_from_planes
-    return np.asarray(image_from_planes(cfg, planes,
-                                        jnp.float32(iteration)))
+    """Resolve plane state to a host (H, W, 3) image: the pixel-order
+    permutation, resolve and tonemap run on the device (XLA inserts the
+    gather collective for sharded planes), then one transfer to the host."""
+    from tpurt.render import resolve_image
+    st = planes_to_state(cfg, planes, iteration, 0.0, 0.0)
+    return np.asarray(resolve_image(cfg, st))
 
 
 def resolve_image_sharded(cfg: RenderConfig, state: RenderState):

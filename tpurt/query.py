@@ -7,9 +7,9 @@ surface, so the tracer embeds in other pipelines (visibility baking,
 light-map sampling, AO probes, sensor simulation) without going through
 a camera or film.
 
-TPU-first: rays are SoA `(N, 3)` arrays, the whole batch intersects
+Array-first: rays are SoA `(N, 3)` arrays, the whole batch intersects
 under one jit (chunked `lax.fori_loop` primitive sweeps, one-hot
-MXU-friendly material lookup — no per-ray control flow), and results
+matmul material lookup — no per-ray control flow), and results
 come back as a flat NamedTuple of `(N,)`/`(N, 3)` arrays. `N` is the
 only shape axis; keep it static across calls to stay on the compiled
 path. Geometry semantics are the renderer's exactly: unnormalized

@@ -1,4 +1,5 @@
-"""Progressive renderer: the TPU equivalent of the reference's frame loop.
+"""Progressive renderer: the accelerator equivalent of the reference's
+frame loop.
 
 The reference accumulates radiance into an Rgba32Float texture (rgb = sum,
 alpha = sample count, ref: mega_kernel.wgsl:1017-1021), keeps host-side
@@ -47,47 +48,22 @@ class RenderState:
     rays: jnp.ndarray           # ()     f32 — traced segments (metrics)
 
 
-WAVEFRONT_BACKENDS = ("wavefront", "wavefront_pallas", "wavefront_fused")
+BACKENDS = ("xla", "pallas", "wavefront")
 
 
 def padded_pixels(cfg: RenderConfig) -> int:
     n = cfg.n_pixels
-    # The Pallas backend needs P divisible by its lane tile AND by 128 for
-    # the (16, TR, 128) plane layout; pallas_lanes is a multiple of 128.
-    # With block tiles, each tile is an (R x 128) image block, so P covers
-    # the image rounded up to whole blocks in both dimensions.
     if cfg.backend == "pallas":
+        # the fused kernel's tiles are (R x 128) image blocks (or, without
+        # block tiles, runs of pallas_lanes linear pixels)
         from tpurt.kernels.mega_pallas import block_grid
         g = block_grid(cfg)
         if g is not None:
             return g[0] * g[1] * cfg.pallas_lanes
-    if cfg.backend in ("pallas",) + WAVEFRONT_BACKENDS:
-        # wavefront backends: the fused kernel maps linear-order lanes onto
-        # the flat state, so P only needs to cover whole lane tiles
         t = cfg.pallas_lanes
     else:
         t = cfg.tile_size
     return ((n + t - 1) // t) * t
-
-
-def _wavefront_dispatch(cfg: RenderConfig):
-    """The wavefront tracer as a first-class backend (VERDICT r1 §5): all
-    three implementations are selectable via cfg.backend —
-      "wavefront"        pool + compaction-by-regeneration, pure XLA
-      "wavefront_pallas" pool form with the Pallas sweep kernel
-      "wavefront_fused"  fully-fused per-lane-regeneration kernel (fastest)
-    (ref: src/wavefront.rs / wavefront.wgsl — the reference's disabled
-    component, finished; BASELINE config 5)."""
-    from tpurt.wavefront import reject_camera_strata
-    reject_camera_strata(cfg)
-    if cfg.backend == "wavefront":
-        from tpurt.wavefront import wavefront_render
-        return wavefront_render
-    if cfg.backend == "wavefront_pallas":
-        from tpurt.kernels.wavefront_pallas import wavefront_render_pallas
-        return wavefront_render_pallas
-    from tpurt.kernels.wavefront_pallas import wavefront_render_fused
-    return wavefront_render_fused
 
 
 def init_state(cfg: RenderConfig) -> RenderState:
@@ -130,13 +106,6 @@ def _pixel_coords(cfg: RenderConfig):
     return jnp.asarray(px), jnp.asarray(py)
 
 
-def _use_pallas(scene, cfg) -> bool:
-    if cfg.backend != "pallas":
-        return False
-    from tpurt.kernels import mega_pallas
-    return mega_pallas.supports_scene(scene, cfg)
-
-
 def _check_camera_kind(cfg: RenderConfig, camera) -> None:
     """Catch the camera-type/flag mismatch (and bad cfg enums) up front —
     they would otherwise surface as an AttributeError deep inside a
@@ -150,6 +119,9 @@ def _check_camera_kind(cfg: RenderConfig, camera) -> None:
         raise TypeError("got a MotionCamera but cfg.motion_blur is False — "
                         "set RenderConfig(motion_blur=True) or pass "
                         "camera.cam0")
+    if cfg.backend not in BACKENDS:
+        raise ValueError(f"cfg.backend must be one of {BACKENDS}, got "
+                         f"{cfg.backend!r}")
     if cfg.light_sample not in ("all", "power", "spatial"):
         raise ValueError(f"cfg.light_sample must be 'all', 'power' or "
                          f"'spatial', got {cfg.light_sample!r}")
@@ -171,44 +143,36 @@ def _check_camera_kind(cfg: RenderConfig, camera) -> None:
         # with aiming off rendered fine before this check existed.
         raise ValueError(f"cfg.photon_aim_widen must be > 0 when "
                          f"photon_aim > 0, got {cfg.photon_aim_widen!r}")
-    if cfg.photon_aim > 0.0 and (
-            cfg.backend in WAVEFRONT_BACKENDS
-            or (cfg.backend == "pallas" and not cfg.pallas_regen)):
+    if cfg.photon_aim > 0.0 and cfg.backend == "wavefront":
         raise NotImplementedError(
             "cfg.photon_aim is implemented in the XLA integrator and the "
             "regenerative megakernel only — use backend='xla' or "
-            "backend='pallas' (pallas_regen=True, the default)")
+            "backend='pallas'")
 
 
 def render_step(scene: Scene, cfg: RenderConfig, camera: Camera,
                 state: RenderState, base_seed, depth: int | None = None) -> RenderState:
     """Advance every pixel by one progressive sample (one reference frame).
 
-    Dispatches to the Pallas megakernel (cfg.backend == "pallas", sphere
-    scenes) or the XLA integrator. The Pallas path freezes the scene into
-    compile-time constants, so `scene` must be concrete here — call this
-    OUTSIDE any enclosing jit when using the pallas backend.
+    Dispatches on cfg.backend: the regenerative megakernel ("pallas"; it
+    freezes the scene into compile-time constants, so `scene` must be
+    concrete here — call this OUTSIDE any enclosing jit), the XLA pool
+    wavefront ("wavefront") or the XLA integrator ("xla"). `depth`
+    overrides cfg.depth (preview frames).
     """
     _check_camera_kind(cfg, camera)
-    if cfg.backend in WAVEFRONT_BACKENDS:
-        # depth is a static kernel constant for the pool tracers: a preview
-        # override re-jits a depth-limited form (same as the XLA/pallas
-        # static-depth behavior, just spelled through cfg)
-        if depth is not None and depth != cfg.depth:
-            cfg = cfg.with_(depth=depth)
-        return _wavefront_dispatch(cfg)(scene, cfg, camera, state,
-                                        base_seed, 1)
-    if _use_pallas(scene, cfg):
-        d = cfg.depth if depth is None else depth
-        if cfg.pallas_regen:
-            from tpurt.kernels import mega_regen
-            return mega_regen.render_regen(scene, cfg, camera, state,
-                                           base_seed, 1, depth=d)
-        from tpurt.kernels import mega_pallas
-        return mega_pallas.render_step_pallas(
-            scene, cfg, camera, state, base_seed, d)
-    return _render_step_xla(scene, cfg, camera, state, base_seed,
-                            cfg.depth if depth is None else depth)
+    d = cfg.depth if depth is None else depth
+    if cfg.backend == "wavefront":
+        from tpurt.wavefront import wavefront_render
+        # depth is a static constant of the pool tracer: a preview override
+        # re-jits a depth-limited form
+        return wavefront_render(scene, cfg.with_(depth=d), camera, state,
+                                base_seed, 1)
+    if cfg.backend == "pallas":
+        from tpurt.kernels import mega_regen
+        return mega_regen.render_regen(scene, cfg, camera, state, base_seed,
+                                       1, depth=d)
+    return _render_step_xla(scene, cfg, camera, state, base_seed, d)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "depth"))
@@ -218,9 +182,7 @@ def _render_step_xla(scene, cfg, camera, state, base_seed, depth: int):
 
 def _render_step_impl(scene, cfg, camera, state, base_seed, depth: int):
     px, py = _pixel_coords(cfg)
-    # tile unit must divide the padded pixel count (differs when a mesh
-    # scene falls back here from the pallas backend)
-    T = cfg.pallas_lanes if cfg.backend == "pallas" else cfg.tile_size
+    T = cfg.tile_size
     P = padded_pixels(cfg)
     # padding lanes (pixel-count round-up) never trace: exact ray counts
     valid = (jnp.arange(P, dtype=jnp.int32) < cfg.n_pixels)
@@ -292,22 +254,18 @@ def render(scene: Scene, cfg: RenderConfig, camera: Camera,
            state: RenderState, base_seed, spp: int) -> RenderState:
     """Run `spp` progressive samples under ONE jit — no host round-trips.
 
-    Pallas backend: tile planes stay resident across all spp samples (the
-    (P,3)<->planes layout conversion is paid once, not per step), and the
-    scene is baked into the kernel as compile-time constants.
+    backend="pallas": the regenerative megakernel keeps its (16, TR, 128)
+    planes resident for all spp samples (the (P,3)<->planes conversion is
+    paid once per call) and raises for scenes beyond its scope.
     """
     _check_camera_kind(cfg, camera)
-    if cfg.backend in WAVEFRONT_BACKENDS:
-        return _wavefront_dispatch(cfg)(scene, cfg, camera, state,
-                                        base_seed, spp)
-    if _use_pallas(scene, cfg):
-        if cfg.pallas_regen:
-            from tpurt.kernels import mega_regen
-            return mega_regen.render_regen(scene, cfg, camera, state,
-                                           base_seed, spp)
-        from tpurt.kernels import mega_pallas
-        return mega_pallas.render_pallas(
-            scene, cfg, camera, state, base_seed, spp)
+    if cfg.backend == "wavefront":
+        from tpurt.wavefront import wavefront_render
+        return wavefront_render(scene, cfg, camera, state, base_seed, spp)
+    if cfg.backend == "pallas":
+        from tpurt.kernels import mega_regen
+        return mega_regen.render_regen(scene, cfg, camera, state, base_seed,
+                                       spp)
     return _render_xla(scene, cfg, camera, state, base_seed, spp)
 
 

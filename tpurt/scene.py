@@ -5,10 +5,10 @@ src/{instance,material,light}.rs): materials (diffuse / dielectric), unit
 spheres with transform+scale, OBJ meshes with a baked T*R*S transform, point
 and square-area lights, and a CPU-built BVH.  The reference packs #[repr(C)]
 byte structs for wgpu bind groups; here the device format is a pytree of
-float32/int32 SoA arrays — the natural TPU layout (contiguous lanes per
+float32/int32 SoA arrays — the natural accelerator layout (contiguous lanes per
 field, no interleaving, no padding bytes).
 
-TPU-first deviations from the reference layout, all documented inline:
+Deviations from the reference layout, all documented inline:
   * spheres store (center, radius) instead of a mat4 transform — the kernel
     only ever uses transform*origin and scale (ref: mega_kernel.wgsl:280-281),
     so the matrix is dead weight on device;

@@ -18,7 +18,7 @@ kept deliberately simple and offline-first:
 
 This is *biased* (history lags the true signal) and meant for preview /
 animation smoothing, exactly like its game/film counterparts; benchmark
-and convergence paths never touch it. TPU shape: one gather (the bilinear
+and convergence paths never touch it. Shape: one gather (the bilinear
 fetch) + elementwise math per frame, all static shapes, one jit.
 
 Projection math (camera.py basis): dir(u,v) = ll + u*h + v*v - o has unit

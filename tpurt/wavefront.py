@@ -10,11 +10,11 @@ wavefront.rs:134-138). BASELINE.json config 5 names the finished form:
 "ray queues with compaction".
 
 On a GPU, compaction means sorting the surviving rays to the front of a
-queue so warps stay dense. On a TPU — static shapes, no per-lane scatter in
-the hot loop — the idiomatic equivalent is **regeneration**: a persistent
+queue so warps stay dense. With static shapes and no per-lane scatter in
+the hot loop, the array equivalent is **regeneration**: a persistent
 pool of Q ray slots that is ALWAYS dense. Each sweep:
 
-  extend   intersect all Q slots with the scene (batched sweeps, VPU)
+  extend   intersect all Q slots with the scene (batched sweeps)
   shade    full material set: NEE + Oren-Nayar / dielectric GGX scatter
            (the reference's wavefront shade stage was Lambertian-only;
            ours matches the mega-kernel physics so mixed-material scenes
@@ -22,7 +22,7 @@ pool of Q ray slots that is ALWAYS dense. Each sweep:
            behind cfg.sky_gradient, default off to match the mega kernel's
            black sky, mega_kernel.wgsl:617-620)
   splat    terminated slots scatter-add their radiance into the image
-           (one segment-sum per sweep — the TPU-native "queue drain")
+           (one segment-sum per sweep — the array "queue drain")
   regen    dead slots immediately pull the next pending (pixel, sample)
            work item and become fresh camera rays — occupancy stays ~100%
            regardless of path-length divergence, which is exactly what GPU
@@ -104,7 +104,7 @@ def _regen(cfg: RenderConfig, camera: Camera, pool: WavefrontPool,
 
     # per-(pixel, sample) stream: identical construction to the progressive
     # renderer (render.py), offset by the carried iteration so progressive
-    # continuation draws NEW samples (cf. wavefront_pallas it0_i + sample)
+    # continuation draws NEW samples (cf. the fused kernel's it0_i + sample)
     new_pool = _issue(cfg, camera, pool, pix, gpix, it0 + sample,
                       have_work, base_seed)
     issued = jnp.sum(have_work.astype(jnp.int32))
